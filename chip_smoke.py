@@ -12,23 +12,38 @@ Phases (any failure raises and exits non-zero):
      must be exactly equal;
   3. kernel K2 (tile compositing) against its plain version on the same
      frame: max abs difference <= K2_TOL;
-  4. the main path with every launch counter at 0: ``render()`` of the
-     committed fitted 20k-splat scene (>= 45 dB against the dense
+  3b. kernels K3 and K4 (the training forward and backward) against their
+     plain versions on the same frame: C and logT max abs <= K3_TOL, the
+     per-tile cut equal, and K4's per-gaussian gradients per field within
+     K4_REL_TOL of the field's largest value, cosine >= K4_MIN_COS;
+  4. the inference path with every launch counter at 0: ``render()`` of
+     the committed fitted 20k-splat scene (>= 45 dB against the dense
      renderer), then ``render()`` and a timed yaw sweep of 1M random and
      1M surface gaussians @1920x1080 with overflow 0;
-  5. both kernels must have launched during phase 4.
-The second-to-last line is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no result
-line when no CUDA device is available.  The port imports no JAX.
+  5. K1 and K2 must have launched during phase 4;
+  6. the training path with every launch counter at 0: the fitted-20k
+     recipe of scripts/make_fitted_scene.py (surface_scene(20_000), 4
+     orbit poses at 400x300, perturbed start, ``fit(method="tiled")``,
+     L2 + L1 + D-SSIM, lr 5e-3, FIT_STEPS steps; targets from the port's
+     ``render_dense``) must more than halve its loss with every loss
+     finite; then timed tiled ``fit`` steps on 1M surface gaussians
+     @1920x1080 with 2 orbit views and overflow 0;
+  7. K3 and K4 must have launched during phase 6.
+The second-to-last line is a JSON object describing each kernel, with its
+bound (the least time the card could take for its work on these inputs);
+the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
+result line when no CUDA device is available.  The port imports no JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FITTED_PLY = os.path.join(ROOT, "tests", "data", "fitted_20k.ply")
@@ -39,6 +54,25 @@ H, W = 1080, 1920
 K2_TOL = 1e-4
 FITTED_MIN_PSNR = 45.0
 SWEEP_FRAMES = 30
+# K3: the same f32 operations in the same order as its plain version; only
+# expf/log1pf rounding may differ.
+K3_TOL = 1e-4
+# K4: atomics add the tiles' pair sums into each gaussian in a run-dependent
+# order, and the pixel sums run in another order than torch's.
+K4_REL_TOL = 1e-4
+K4_MIN_COS = 0.99999
+FIT_STEPS = 30
+BIG_FIT_STEPS = 3
+# The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
+# HBM bytes per second, and FP32 operations per second outside the tensor
+# cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# Operations to evaluate one pair's alpha at one pixel (K2/K3/K4): dx, dy,
+# three products, the quadratic form (3 mul + 2 add), expf, the opacity
+# product, the clamp, the alpha_min test.  A kept pair's compositing or
+# gradient work is not counted, so the bound is below what the walk needs.
+ALPHA_OPS = 14
 
 
 def require(cond: bool, msg: str) -> None:
@@ -46,10 +80,11 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
     import torch
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -59,6 +94,23 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least milliseconds the card could take: the larger of the bytes
+    over the memory rate and the operations over the FP32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops):
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def bench_scene(kind: str, n: int, device):
@@ -96,14 +148,18 @@ def check_expand(proj, h, w, cfg):
             "num_pairs + overflow differs from the true pair count")
     ms = cuda_ms(lay.expand, 20)
     plain_ms = cuda_ms(lambda: lay.expand(expand_pair_keys_plain), 5)
+    n = lay.first_slot.shape[0]
+    # reads first_slot (8 B), tx0/ty0/span_w/depth bits (4 B each) per
+    # gaussian; writes a key and an owner (8 B each) per slot
+    rec = kernel_record("expand_pair_keys", "splat_tpu_torch/csrc/expand.cu",
+                        "splat_tpu/render/expand.py:85",
+                        float((keys - keys_p).abs().max()), ms, plain_ms,
+                        24 * n + 8 + 16 * lay.k_cap, 0)
     print(f"[K1] expand_pair_keys: k_cap={lay.k_cap} pairs={num_pairs} "
           f"overflow={overflow}: exact match; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return {"name": "expand_pair_keys", "route": "cuda",
-            "source": "splat_tpu_torch/csrc/expand.cu",
-            "replaces": "splat_tpu/render/expand.py:85",
-            "max_abs_err": float((keys - keys_p).abs().max()),
-            "ms": ms, "plain_ms": plain_ms}, bins
+          f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+    return rec, bins
 
 
 def check_raster(bins, h, w, cfg) -> dict:
@@ -113,7 +169,8 @@ def check_raster(bins, h, w, cfg) -> dict:
                                                 rasterize_tiles_plain)
 
     img = rasterize_tiles(bins, h, w, cfg)
-    img_p = rasterize_tiles_plain(bins, h, w, cfg)
+    img_p, walked = rasterize_tiles_plain(bins, h, w, cfg,
+                                          return_walked=True)
     torch.cuda.synchronize()
     require(img.shape == (h, w, 3) and bool(torch.isfinite(img).all()),
             f"K2 image shape {tuple(img.shape)} or non-finite values")
@@ -121,12 +178,87 @@ def check_raster(bins, h, w, cfg) -> dict:
     require(err <= K2_TOL, f"K2 max abs error {err} > {K2_TOL}")
     ms = cuda_ms(lambda: rasterize_tiles(bins, h, w, cfg), 20)
     plain_ms = cuda_ms(lambda: rasterize_tiles_plain(bins, h, w, cfg), 2)
-    print(f"[K2] rasterize_tiles: max abs err {err:.3e} (bound {K2_TOL}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"name": "rasterize_tiles", "route": "cuda",
-            "source": "splat_tpu_torch/csrc/raster.cu",
-            "replaces": "splat_tpu/render/kernels.py:123",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    nt = bins.tiles_x * bins.tiles_y
+    evals = int(walked.sum()) * cfg.tile_w * cfg.tile_h
+    rec = kernel_record("rasterize_tiles", "splat_tpu_torch/csrc/raster.cu",
+                        "splat_tpu/render/kernels.py:123", err, ms, plain_ms,
+                        44 * int(bins.num_pairs) + 8 * nt + 12 * h * w,
+                        ALPHA_OPS * evals)
+    print(f"[K2] rasterize_tiles: max abs err {err:.3e} (tol {K2_TOL}); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {evals} "
+          f"pixel-pair evaluations)")
+    return rec
+
+
+def check_train(bins, h, w, cfg):
+    """Phase 3b: K3 and K4 against their plain versions."""
+    import torch
+    from splat_tpu_torch.render import diff
+
+    c, lt, cut = diff.rasterize_train_fwd(bins, h, w, cfg)
+    c_p, lt_p, cut_p = diff.rasterize_train_fwd_plain(bins, h, w, cfg)
+    torch.cuda.synchronize()
+    require(c.shape == (h, w, 3) and lt.shape == (h, w)
+            and bool(torch.isfinite(c).all() & torch.isfinite(lt).all()),
+            "K3: bad shape or non-finite values")
+    err3 = max(float((c - c_p).abs().max()), float((lt - lt_p).abs().max()))
+    require(err3 <= K3_TOL, f"K3 max abs error {err3} > {K3_TOL}")
+    require(torch.equal(cut, cut_p), "K3 cut differs from the plain version")
+    gen = torch.Generator(device=c.device).manual_seed(0)
+    g_c = torch.randn((h, w, 3), generator=gen, device=c.device)
+    g_lt = torch.randn((h, w), generator=gen, device=c.device)
+    g = diff.rasterize_train_bwd(bins, g_c, g_lt, lt, cut, h, w, cfg)
+    g_p = diff.rasterize_train_bwd_plain(bins, g_c, g_lt, lt, cut, h, w,
+                                         cfg)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(g).all()), "K4: non-finite gradients")
+    rel = max(float((g[:, q] - g_p[:, q]).abs().max())
+              / (float(g_p[:, q].abs().max()) + 1e-30)
+              for q in range(g.shape[1]))
+    a, b = g.double().flatten(), g_p.double().flatten()
+    cos = float(a @ b / (a.norm() * b.norm()))
+    require(rel <= K4_REL_TOL, f"K4 per-field relative error {rel} > "
+                               f"{K4_REL_TOL}")
+    require(cos >= K4_MIN_COS, f"K4 cosine {cos} < {K4_MIN_COS}")
+    err4 = float((g - g_p).abs().max())
+
+    ms3 = cuda_ms(lambda: diff.rasterize_train_fwd(bins, h, w, cfg), 10)
+    plain3 = cuda_ms(lambda: diff.rasterize_train_fwd_plain(bins, h, w, cfg),
+                     1, warmup=False)
+    ms4 = cuda_ms(lambda: diff.rasterize_train_bwd(bins, g_c, g_lt, lt, cut,
+                                                   h, w, cfg), 10)
+    plain4 = cuda_ms(lambda: diff.rasterize_train_bwd_plain(
+        bins, g_c, g_lt, lt, cut, h, w, cfg), 1, warmup=False)
+
+    nt = bins.tiles_x * bins.tiles_y
+    n = bins.num_gaussians
+    pairs = int(bins.num_pairs)
+    _, e, base, nch = diff._windows(bins, cfg.chunk)
+    walk_end = torch.minimum(e, base + torch.minimum(cut.long(), nch)
+                             * cfg.chunk)
+    walked = int(torch.clamp(walk_end - bins.tile_start.long(), min=0).sum())
+    evals = walked * cfg.tile_w * cfg.tile_h
+    k3 = kernel_record("rasterize_train_fwd",
+                       "splat_tpu_torch/csrc/raster_train.cu",
+                       "splat_tpu/render/diff.py:211", err3, ms3, plain3,
+                       44 * pairs + 12 * nt + 16 * h * w, ALPHA_OPS * evals)
+    # reads the features and owner of each pair, dL/dC, dL/dlogT and logT
+    # per pixel; writes 9 floats per gaussian
+    k4 = kernel_record("rasterize_train_bwd",
+                       "splat_tpu_torch/csrc/raster_train.cu",
+                       "splat_tpu/render/diff.py:360", err4, ms4, plain4,
+                       52 * pairs + 12 * nt + 20 * h * w + 36 * n,
+                       ALPHA_OPS * evals)
+    print(f"[K3] rasterize_train_fwd: max abs err {err3:.3e} (tol "
+          f"{K3_TOL}), cut equal ({walked} of {pairs} pairs walked); "
+          f"kernel {ms3:.4f} ms, plain {plain3:.4f} ms, bound "
+          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
+    print(f"[K4] rasterize_train_bwd: per-field rel err {rel:.3e} (tol "
+          f"{K4_REL_TOL}), cosine {cos:.8f} (min {K4_MIN_COS}), max abs "
+          f"err {err4:.3e}; kernel {ms4:.4f} ms, plain {plain4:.4f} ms, "
+          f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+    return k3, k4
 
 
 def main_path(device) -> None:
@@ -165,6 +297,93 @@ def main_path(device) -> None:
         del scene
 
 
+def training_path(device) -> None:
+    """Phase 6: the fitted-20k recipe, then timed tiled fit steps on 1M
+    surface gaussians @1920x1080."""
+    import numpy as np
+    import torch
+    import splat_tpu_torch as stt
+    from splat_tpu_torch.ops.projection import project_gaussians
+    from splat_tpu_torch.render.binning import count_pairs
+
+    n = 20_000
+    truth = stt.surface_scene(n, seed=0, device=device)
+    cams = stt.orbit_trajectory(
+        stt.Camera.create(h=300, w=400, position=(0.0, -1.0, 3.5),
+                          device=device), 4, yaw_sweep=0.8, pitch_sweep=0.2)
+    cfg = stt.RenderConfig(max_dup_factor=3.0)
+    targets = torch.stack([stt.render_dense(truth, c, cfg, chunk=64)
+                           for c in cams])
+    rng = np.random.default_rng(1)
+    jitter = torch.tensor(rng.normal(0.0, 0.02, (n, 3)).astype(np.float32),
+                          device=device)
+    start = dataclasses.replace(
+        truth, means=truth.means + jitter, sh=truth.sh * 0.6,
+        opacities=torch.clamp(truth.opacities * 0.8, 0.01, 0.99))
+    t0 = time.perf_counter()
+    res = stt.fit(start, cams, targets, steps=FIT_STEPS, lr=5e-3,
+                  config=cfg, method="tiled", l1_weight=0.2,
+                  dssim_weight=0.2)
+    secs = time.perf_counter() - t0
+    losses = res.losses.cpu()
+    require(losses.shape == (FIT_STEPS,) and bool(torch.isfinite(
+        losses).all()), "fitted-20k recipe: non-finite losses")
+    first, last = float(losses[0]), float(losses[-1])
+    require(last < first / 2,
+            f"fitted-20k recipe: loss {first} -> {last}, not halved")
+    print(f"[train] fitted_20k recipe @400x300, 4 views, {FIT_STEPS} tiled "
+          f"steps (L2 + L1 + D-SSIM, lr 5e-3): loss {first:.6f} -> "
+          f"{last:.6f} ({first / last:.2f}x lower) in {secs:.2f} s")
+    del truth, start, res, targets
+
+    truth = stt.surface_scene(N_BIG, seed=0, device=device)
+    cams = stt.orbit_trajectory(
+        stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0),
+                          device=device), 2, yaw_sweep=0.05)
+    cfg = stt.RenderConfig(max_dup_factor=1.45)
+    targets = torch.stack([stt.render(truth, c, cfg) for c in cams])
+    start = dataclasses.replace(truth, sh=truth.sh * 0.8)
+    del truth
+    k_cap = int(cfg.max_dup_factor * N_BIG)
+
+    def demand(scene):
+        with torch.no_grad():
+            return max(int(count_pairs(project_gaussians(scene, c, cfg),
+                                       H, W, cfg)[1]) for c in cams)
+
+    def run(steps):
+        return stt.fit(start, cams, targets, steps=steps, lr=5e-3,
+                       config=cfg, method="tiled", l1_weight=0.2,
+                       dssim_weight=0.2)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        run(1)                                   # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        res = run(BIG_FIT_STEPS)
+        t_end.record()
+        torch.cuda.synchronize()
+    truncated = [str(w.message) for w in caught
+                 if str(w.message).startswith("fit:")]
+    require(not truncated, f"1M fit: {truncated}")
+    ms = t_start.elapsed_time(t_end) / BIG_FIT_STEPS
+    pairs = max(demand(start), demand(res.scene))
+    overflow = max(pairs - k_cap, 0)
+    require(overflow == 0, f"1M fit: {pairs} pairs > k_cap {k_cap}")
+    losses = res.losses.cpu()
+    require(bool(torch.isfinite(losses).all()), "1M fit: non-finite loss")
+    print(f"[train] surface {N_BIG} @{W}x{H}, 2 views, dup "
+          f"{cfg.max_dup_factor}: {ms:.3f} ms/step ({BIG_FIT_STEPS} steps "
+          f"of fit() timed whole with CUDA events, set-up included); "
+          f"loss {float(losses[0]):.6f} -> {float(losses[-1]):.6f}; "
+          f"pairs<={pairs} k_cap={k_cap} overflow={overflow}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -175,6 +394,8 @@ def main() -> int:
     import splat_tpu_torch as stt
     from splat_tpu_torch import _build
     from splat_tpu_torch.ops.projection import project_gaussians
+    from splat_tpu_torch.render.diff import (rasterize_train_bwd,
+                                             rasterize_train_fwd)
     from splat_tpu_torch.render.expand import expand_pair_keys
     from splat_tpu_torch.render.kernels import rasterize_tiles
 
@@ -195,17 +416,30 @@ def main() -> int:
     proj = project_gaussians(scene, cam, cfg)
     k1, bins = check_expand(proj, H, W, cfg)
     k2 = check_raster(bins, H, W, cfg)
+    k3, k4 = check_train(bins, H, W, cfg)
     del scene, proj, bins
+    kernels = (expand_pair_keys, rasterize_tiles, rasterize_train_fwd,
+               rasterize_train_bwd)
 
-    expand_pair_keys.launches = 0
-    rasterize_tiles.launches = 0
+    def zero_counts():
+        for fn in kernels:
+            fn.launches = 0
+
+    zero_counts()
     main_path(device)
     k1["launches"] = expand_pair_keys.launches
     k2["launches"] = rasterize_tiles.launches
-    for k in (k1, k2):
-        require(k["launches"] > 0, f"{k['name']} never launched on the "
-                                   f"main path")
-    print(json.dumps({"kernels": [k1, k2]}))
+    zero_counts()
+    training_path(device)
+    k3["launches"] = rasterize_train_fwd.launches
+    k4["launches"] = rasterize_train_bwd.launches
+    print(f"[train] launches on the training path: K1 "
+          f"{expand_pair_keys.launches}, K2 {rasterize_tiles.launches}, "
+          f"K3 {k3['launches']}, K4 {k4['launches']}")
+    for k in (k1, k2, k3, k4):
+        require(k["launches"] > 0, f"{k['name']} never launched on its "
+                                   f"path")
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

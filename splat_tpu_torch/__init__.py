@@ -1,31 +1,37 @@
 """splat_tpu_torch — the PyTorch + CUDA port of ``splat_tpu`` for NVIDIA
 Hopper (H100).
 
-The inference frame runs end to end on the card: projection and binning
-are PyTorch tensor code, and the two TPU kernels on the path are CUDA C++
-kernels written for ``sm_90a`` (``csrc/expand.cu``: pair expansion,
-``csrc/raster.cu``: per-tile compositing), built with ``nvcc`` on first
-use.  CPU tensors take each kernel's plain PyTorch version, which the
-tests hold against the JAX package.  This package never imports JAX.
+The inference frame and tiled training run on the card: projection,
+binning and the optimiser are PyTorch tensor code, and the four TPU
+kernels are CUDA C++ kernels written for ``sm_90a`` (``csrc/expand.cu``:
+pair expansion, ``csrc/raster.cu``: per-tile compositing,
+``csrc/raster_train.cu``: the training forward and backward), built with
+``nvcc`` on first use.  Constructors put tensors on ``cuda:0`` unless
+given ``device=``.  CPU tensors take each kernel's plain PyTorch version,
+which the tests hold against the JAX package.  This package never
+imports JAX.
 
 Public API::
 
     import splat_tpu_torch as stt
 
-    scene  = stt.load_ply("point_cloud.ply", device="cuda")
-    camera = stt.Camera.create(h=1080, w=1920, position=(0., 0., 5.),
-                               device="cuda")
+    scene  = stt.load_ply("point_cloud.ply")         # on cuda:0
+    camera = stt.Camera.create(h=1080, w=1920, position=(0., 0., 5.))
     img    = stt.render(scene, camera)              # float32 (H, W, 3)
+    res    = stt.fit(scene, stt.orbit_trajectory(camera, 4, 0.8), targets,
+                     method="tiled")                # targets (4, H, W, 3)
 """
 
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.scene import GaussianScene
-from splat_tpu_torch.camera import Camera
+from splat_tpu_torch.camera import Camera, orbit_trajectory
 from splat_tpu_torch.io.ply import PlyError, load_ply, save_ply
 from splat_tpu_torch.render.api import (auto_config, pair_stats, render,
                                         render_fn)
 from splat_tpu_torch.render.dense import render_dense
+from splat_tpu_torch.render.diff import render_tiled_diff
 from splat_tpu_torch.render.tiled import render_tiled, render_tiled_checked
+from splat_tpu_torch.train import RawParams, fit
 from splat_tpu_torch.utils.fixtures import (naive_gaussians, random_scene,
                                             surface_scene)
 from splat_tpu_torch.utils.image import psnr
@@ -36,6 +42,7 @@ __all__ = [
     "RenderConfig",
     "GaussianScene",
     "Camera",
+    "orbit_trajectory",
     "PlyError",
     "load_ply",
     "save_ply",
@@ -46,6 +53,9 @@ __all__ = [
     "render_dense",
     "render_tiled",
     "render_tiled_checked",
+    "render_tiled_diff",
+    "RawParams",
+    "fit",
     "naive_gaussians",
     "random_scene",
     "surface_scene",

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (counterpart of
 ``splat_tpu/native/build.py``).
 
-``csrc/*.cu`` are compiled with ``nvcc`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, at first use, under
+``csrc/*.cu`` are compiled with ``nvcc`` for Hopper (``sm_90a``), one
+process per source, all started together, and linked into one shared
+library with a plain C interface, at first use, under
 ``build/kernels/`` at the root of the checkout.  The file name carries a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
 reuses the library.  It is loaded with ``ctypes``: every pointer and the
@@ -26,7 +27,7 @@ _PKG = pathlib.Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +39,12 @@ _SIGNATURES = {
                            _P],
     "splat_rasterize": [_P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                         _F, _F, _F, _F, _I, _I, _I, _P],
+    "splat_rasterize_train_fwd": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _F, _F, _I, _F, _I, _I, _I,
+                                  _P],
+    "splat_rasterize_train_bwd": [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _I,
+                                  _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -70,13 +77,33 @@ def build() -> pathlib.Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = tmp.with_name(f"{tmp.name}.{src.stem}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)))
+    failed = []
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{err}")
+    objs = [str(obj) for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", str(tmp), *objs]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     return out
 
 

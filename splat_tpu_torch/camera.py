@@ -17,6 +17,8 @@ import math
 
 import torch
 
+from splat_tpu_torch.device import resolve_device
+
 
 def _f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
@@ -43,6 +45,10 @@ class Camera:
                yaw: float = 0.0, pitch: float = 0.0,
                znear: float = 0.01, zfar: float = 100.0,
                fovy: float = math.pi / 2, device=None) -> "Camera":
+        """device: where the pose tensors live (None = cuda:0, raising
+        without a CUDA device)."""
+        device = resolve_device(device)
+
         def v3(v):
             return _f32(v, device).reshape(3)
 
@@ -113,6 +119,21 @@ class Camera:
     def scaled(self, ss: int) -> "Camera":
         """Resolution scaled by ``ss`` with the field of view unchanged."""
         return dataclasses.replace(self, h=self.h * ss, w=self.w * ss)
+
+
+def orbit_trajectory(camera: Camera, num_frames: int,
+                     yaw_sweep: float = 2 * math.pi,
+                     pitch_sweep: float = 0.0) -> list[Camera]:
+    """``num_frames`` cameras whose yaw and pitch step linearly from the
+    camera's own by up to ``yaw_sweep`` / ``pitch_sweep`` (both ends
+    included).  ``splat_tpu`` returns one camera with a leading frame axis;
+    the port returns a list, which ``fit`` and the renderers loop over."""
+    ts = torch.linspace(0.0, 1.0, num_frames, dtype=torch.float32,
+                        device=camera.device)
+    yaws = camera.yaw + ts * yaw_sweep
+    pitches = camera.pitch + ts * pitch_sweep
+    return [dataclasses.replace(camera, yaw=yaws[i], pitch=pitches[i])
+            for i in range(num_frames)]
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

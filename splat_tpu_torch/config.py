@@ -24,8 +24,9 @@ class RenderConfig:
       alpha_clamp: upper clamp on per-splat alpha.
       alpha_min: pairs with alpha below this are skipped; a tile stops its
         walk once every pixel's transmittance is below it.
-      train_sat_exit: training-path knob; unused until the training kernels
-        are ported.
+      train_sat_exit: training path (render_tiled_diff) only: each tile's
+        walk stops once every pixel has T < alpha_min (checked every 4
+        windows) instead of at the exact f32 saturation cut.
       tile_px / tile_py: tile width / height in pixels (tile_py 0 = square).
         The raster kernel takes tiles of at most 4096 pixels.
       max_dup_factor: capacity of the (gaussian, tile) pair buffer as a

@@ -58,6 +58,7 @@ class TileBins:
     ranks: (K_cap,) int64 gaussian index of each sorted pair.
     num_pairs: () int64 valid pairs within capacity.
     overflow: () int64 pairs dropped for capacity.
+    num_gaussians: N of the projection the pairs were binned from.
     """
 
     features: torch.Tensor
@@ -68,6 +69,7 @@ class TileBins:
     overflow: torch.Tensor
     tiles_x: int
     tiles_y: int
+    num_gaussians: int
 
 
 def quantize_radius_bits(rx, ry, visible):
@@ -217,4 +219,5 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
                     tile_end=edges[1:].contiguous(), ranks=ranks,
                     num_pairs=torch.clamp(total, max=lay.k_cap),
                     overflow=torch.clamp(total - lay.k_cap, min=0),
-                    tiles_x=lay.tiles_x, tiles_y=lay.tiles_y)
+                    tiles_x=lay.tiles_x, tiles_y=lay.tiles_y,
+                    num_gaussians=proj.depth.shape[0])

@@ -44,9 +44,13 @@ def _untile(x, nty: int, ntx: int, th: int, tw: int, h: int, w: int):
 
 
 def rasterize_tiles_plain(bins: TileBins, h: int, w: int,
-                          config: RenderConfig) -> torch.Tensor:
+                          config: RenderConfig, *,
+                          return_walked: bool = False):
     """Plain PyTorch version of the K2 kernel (any device): all tiles step
-    through their batches together, each batch composited pair by pair."""
+    through their batches together, each batch composited pair by pair.
+
+    return_walked: also return the (T,) int64 number of pairs each tile
+    walked before its exit (the work the kernel does on these inputs)."""
     tw, th = config.tile_w, config.tile_h
     ntx, nty = bins.tiles_x, bins.tiles_y
     nt, p, chunk = ntx * nty, tw * th, config.chunk
@@ -67,6 +71,7 @@ def rasterize_tiles_plain(bins: TileBins, h: int, w: int,
     color = torch.zeros((nt, p, 3), dtype=torch.float32, device=dev)
     trans = torch.ones((nt, p), dtype=torch.float32, device=dev)
     alive = torch.ones(nt, dtype=torch.bool, device=dev)
+    batches = torch.zeros(nt, dtype=torch.int64, device=dev)
     lane = torch.arange(chunk, device=dev)
 
     for j in range(int(nb.max()) if nt else 0):
@@ -100,12 +105,18 @@ def rasterize_tiles_plain(bins: TileBins, h: int, w: int,
         color[act] = c_a
         trans[act] = t_a
         alive[act] = t_a.amax(dim=1) >= config.alpha_min
+        batches[act] = j + 1
 
     bg = torch.tensor(config.background, dtype=torch.float32, device=dev)
     out = [torch.clamp(color + trans[..., None] * bg, 0.0, 1.0)]
     if config.alpha_channel:
         out.append(torch.clamp(1.0 - trans, 0.0, 1.0)[..., None])
-    return _untile(torch.cat(out, dim=-1), nty, ntx, th, tw, h, w)
+    img = _untile(torch.cat(out, dim=-1), nty, ntx, th, tw, h, w)
+    if return_walked:
+        walked = torch.clamp(torch.minimum(e, base + batches * chunk) - s,
+                             min=0)
+        return img, walked
+    return img
 
 
 def rasterize_tiles(bins: TileBins, h: int, w: int,

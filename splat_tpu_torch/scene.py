@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from splat_tpu_torch.device import resolve_device
+
 _FIELDS = ("means", "quats", "scales", "opacities", "sh")
 
 
@@ -52,9 +54,12 @@ class GaussianScene:
                device=None) -> "GaussianScene":
         """Build a scene from array-likes, validating shapes.
 
-        device: where the tensors live (None = where tensor inputs already
-        are, else the CPU).  Array inputs are copied.
+        device: where the tensors live (None = cuda:0, raising without a
+        CUDA device; see :mod:`splat_tpu_torch.device`).  Array inputs are
+        copied.
         """
+        device = resolve_device(device)
+
         def t(a):
             if isinstance(a, torch.Tensor):
                 return a.to(device=device, dtype=torch.float32)

@@ -2,6 +2,9 @@
 held against splat_tpu's binning (Pallas expansion in interpret mode, as
 tests/test_tiled.py runs it) and against a hand-written expansion (CPU)."""
 
+import dataclasses
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -11,10 +14,13 @@ import splat_tpu_torch as stt
 from splat_tpu.ops.projection import project_gaussians as jax_project
 from splat_tpu.render.binning import build_tile_bins as jax_bins
 from splat_tpu.render.binning import count_pairs as jax_count_pairs
+from splat_tpu_torch.device import resolve_device
 from splat_tpu_torch.ops.projection import project_gaussians
 from splat_tpu_torch.render import binning
 from splat_tpu_torch.render.expand import (expand_pair_keys,
                                            expand_pair_keys_plain)
+from splat_tpu_torch.render.diff import (rasterize_train_bwd,
+                                         rasterize_train_fwd)
 from splat_tpu_torch.render.kernels import rasterize_tiles
 
 torch.set_num_threads(1)
@@ -25,9 +31,9 @@ H, W = 96, 128
 @pytest.fixture(scope="module")
 def frame():
     js = st.random_scene(2000, seed=11, extent=2.0, scale_range=(0.01, 0.1))
-    ts = stt.GaussianScene.from_numpy(js.to_numpy())
+    ts = stt.GaussianScene.from_numpy(js.to_numpy(), device="cpu")
     kw = dict(h=H, w=W, position=(0.0, 0.0, 4.0), yaw=0.3, pitch=-0.2)
-    jc, tc = st.Camera.create(**kw), stt.Camera.create(**kw)
+    jc, tc = st.Camera.create(**kw), stt.Camera.create(**kw, device="cpu")
     jcfg, tcfg = st.RenderConfig(chunk=64), stt.RenderConfig(chunk=64)
     jp = jax_project(js, jc, jcfg)
     tp = project_gaussians(ts, tc, tcfg)
@@ -116,12 +122,16 @@ def test_expand_plain_matches_hand_expansion(k_cap):
 
 def test_cpu_tensors_take_plain_versions(frame):
     _, tp, _, tcfg = frame
-    expand_pair_keys.launches = 0
-    rasterize_tiles.launches = 0
+    kernels = (expand_pair_keys, rasterize_tiles, rasterize_train_fwd,
+               rasterize_train_bwd)
+    for fn in kernels:
+        fn.launches = 0
     tb = binning.build_tile_bins(tp, H, W, tcfg)
     rasterize_tiles(tb, H, W, tcfg)
-    assert expand_pair_keys.launches == 0
-    assert rasterize_tiles.launches == 0
+    c, lt, cut = rasterize_train_fwd(tb, H, W, tcfg)
+    rasterize_train_bwd(tb, torch.ones_like(c), torch.ones_like(lt), lt, cut,
+                        H, W, tcfg)
+    assert [fn.launches for fn in kernels] == [0, 0, 0, 0]
     # any other device raises instead of falling back
     lay = binning.slot_layout(tp, H, W, tcfg)
     meta = [t.to("meta") for t in (lay.first_slot, lay.tx0, lay.ty0,
@@ -129,6 +139,34 @@ def test_cpu_tensors_take_plain_versions(frame):
     with pytest.raises(ValueError):
         expand_pair_keys(*meta, k_cap=lay.k_cap, ntx=lay.tiles_x,
                          num_tiles=lay.tiles_x * lay.tiles_y)
+    meta_bins = dataclasses.replace(tb, features=tb.features.to("meta"))
+    for fn in (rasterize_tiles, rasterize_train_fwd):
+        with pytest.raises(ValueError):
+            fn(meta_bins, H, W, tcfg)
+
+
+_DEFAULT_DEVICE_MAKERS = {
+    "camera": lambda: stt.Camera.create(h=8, w=8),
+    "scene": lambda: stt.GaussianScene.create(
+        np.zeros((1, 3)), np.ones((1, 4)), np.ones((1, 3)), np.ones(1),
+        np.zeros((1, 16, 3))),
+    "random_scene": lambda: stt.random_scene(4),
+    "naive_gaussians": lambda: stt.naive_gaussians(),
+    "load_ply": lambda: stt.load_ply(os.path.join(
+        os.path.dirname(__file__), "data", "surface_5k.ply")),
+}
+
+
+@pytest.mark.parametrize("make", list(_DEFAULT_DEVICE_MAKERS))
+def test_default_device_is_the_card_never_the_cpu(monkeypatch, make):
+    """No device= means cuda:0; without a card that raises instead of
+    quietly building CPU tensors (which would take the plain versions)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _DEFAULT_DEVICE_MAKERS[make]()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve_device(None) == torch.device("cuda", 0)
+    assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_radius_bits_saturate_and_survive_nan():

@@ -23,11 +23,12 @@ DEMO_POS = (-0.57651054, 2.99040512, -0.03924271)
 
 
 def _cams(**kw):
-    return st.Camera.create(**kw), stt.Camera.create(**kw)
+    return st.Camera.create(**kw), stt.Camera.create(**kw, device="cpu")
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, splat_tpu_torch; "
+    code = ("import sys, splat_tpu_torch, splat_tpu_torch.render.diff, "
+            "splat_tpu_torch.train, splat_tpu_torch.utils.benchmark; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'splat_tpu.'))]; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -37,13 +38,13 @@ def test_import_pulls_in_no_jax():
 
 
 @pytest.mark.parametrize("make", [
-    lambda m: m.naive_gaussians(),
-    lambda m: m.random_scene(300, seed=5, extent=2.0),
-    lambda m: m.surface_scene(400, seed=2),
+    lambda m, **kw: m.naive_gaussians(**kw),
+    lambda m, **kw: m.random_scene(300, seed=5, extent=2.0, **kw),
+    lambda m, **kw: m.surface_scene(400, seed=2, **kw),
 ], ids=["naive", "random", "surface"])
 def test_fixtures_bit_equal(make):
     want = make(st).to_numpy()
-    got = make(stt).to_numpy()
+    got = make(stt, device="cpu").to_numpy()
     assert want.keys() == got.keys()
     for k in want:
         assert got[k].dtype == np.float32
@@ -52,13 +53,13 @@ def test_fixtures_bit_equal(make):
 
 def test_scene_numpy_round_trip():
     d = st.random_scene(50, seed=1).to_numpy()
-    scene = stt.GaussianScene.from_numpy(d)
+    scene = stt.GaussianScene.from_numpy(d, device="cpu")
     assert len(scene) == 50 and scene.sh.shape == (50, 16, 3)
     for k, v in scene.to_numpy().items():
         np.testing.assert_array_equal(v, d[k])
     with pytest.raises(ValueError):
         stt.GaussianScene.create(d["means"], d["quats"][:3], d["scales"],
-                                 d["opacities"], d["sh"])
+                                 d["opacities"], d["sh"], device="cpu")
 
 
 @pytest.mark.parametrize("yaw,pitch", [(0.0, 0.0), (0.7, 0.3), (-2.1, -0.4)])
@@ -115,7 +116,7 @@ _PROJ_CASES = {
 def test_project_gaussians_matches_jax(case):
     make, cam_kw, cfg_kw = _PROJ_CASES[case]
     js = make(st)
-    ts = stt.GaussianScene.from_numpy(js.to_numpy())
+    ts = stt.GaussianScene.from_numpy(js.to_numpy(), device="cpu")
     jc, tc = _cams(**cam_kw)
     jp = jax_project(js, jc, st.RenderConfig(**cfg_kw))
     tp = project_gaussians(ts, tc, stt.RenderConfig(**cfg_kw))
@@ -135,10 +136,10 @@ def test_load_ply_matches_jax(tmp_path):
     path = os.path.join(DATA, "surface_5k.ply")
     for kw in ({}, {"center": False, "f_rest_layout": "raw"}):
         want = st.load_ply(path, native=False, **kw).to_numpy()
-        got = stt.load_ply(path, **kw).to_numpy()
+        got = stt.load_ply(path, **kw, device="cpu").to_numpy()
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    scene = stt.random_scene(64, seed=4)
+    scene = stt.random_scene(64, seed=4, device="cpu")
     out = str(tmp_path / "rt.ply")
     stt.save_ply(out, scene)
     back = st.load_ply(out, center=False, native=False).to_numpy()
@@ -148,4 +149,4 @@ def test_load_ply_matches_jax(tmp_path):
     bad = tmp_path / "bad.ply"
     bad.write_bytes(b"not a ply\n")
     with pytest.raises(stt.PlyError):
-        stt.load_ply(str(bad))
+        stt.load_ply(str(bad), device="cpu")

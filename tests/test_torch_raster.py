@@ -44,7 +44,8 @@ def _port_bins(jb) -> TileBins:
                     ranks=torch.tensor(np.asarray(jb.ranks)).long(),
                     num_pairs=torch.tensor(int(jb.num_pairs)),
                     overflow=torch.tensor(int(jb.overflow)),
-                    tiles_x=jb.tiles_x, tiles_y=jb.tiles_y)
+                    tiles_x=jb.tiles_x, tiles_y=jb.tiles_y,
+                    num_gaussians=int(np.asarray(jb.ranks).max()) + 1)
 
 
 @pytest.mark.parametrize("cfg_kw", [
@@ -84,7 +85,8 @@ def test_whole_tile_exit_is_batch_granular(chunk, want):
                     tile_start=torch.tensor([0], dtype=torch.int32),
                     tile_end=torch.tensor([n], dtype=torch.int32),
                     ranks=torch.arange(n), num_pairs=torch.tensor(n),
-                    overflow=torch.tensor(0), tiles_x=1, tiles_y=1)
+                    overflow=torch.tensor(0), tiles_x=1, tiles_y=1,
+                    num_gaussians=n)
     img = rasterize_tiles_plain(bins, 20, 24, RenderConfig(chunk=chunk))
     assert img.shape == (20, 24, 3)
     np.testing.assert_allclose(img.numpy(), want, atol=1e-6)

@@ -42,8 +42,8 @@ def test_tiled_render_matches_jax_and_oracle(case):
     kind, cam_kw, cfg_kw = _CASES[case]
     cam_kw = dict(position=(0.0, -0.5, 4.0), **cam_kw)
     js = _scene(kind, st)
-    ts = stt.GaussianScene.from_numpy(js.to_numpy())
-    jc, tc = st.Camera.create(**cam_kw), stt.Camera.create(**cam_kw)
+    ts = stt.GaussianScene.from_numpy(js.to_numpy(), device="cpu")
+    jc, tc = st.Camera.create(**cam_kw), stt.Camera.create(**cam_kw, device="cpu")
     got = stt.render(ts, tc, stt.RenderConfig(chunk=64, **cfg_kw),
                      method="tiled").numpy()
     jcfg = st.RenderConfig(chunk=64, **cfg_kw)
@@ -61,10 +61,11 @@ def test_tiled_render_matches_jax_and_oracle(case):
 
 def test_dense_matches_oracle():
     js = st.naive_gaussians()
-    ts = stt.naive_gaussians()
+    ts = stt.naive_gaussians(device="cpu")
     for cfg_kw in ({}, dict(alpha_channel=True, supersample=2)):
         jc = st.Camera.create(h=72, w=128, position=DEMO_POS)
-        tc = stt.Camera.create(h=72, w=128, position=DEMO_POS)
+        tc = stt.Camera.create(h=72, w=128, position=DEMO_POS,
+                               device="cpu")
         got = stt.render_dense(ts, tc, stt.RenderConfig(**cfg_kw)).numpy()
         gold = render_oracle(js, jc, st.RenderConfig(**cfg_kw))
         assert got.max() > 0.5              # the splats are drawn
@@ -73,8 +74,9 @@ def test_dense_matches_oracle():
 
 def test_render_auto_capacity_cache_and_retry():
     scene = stt.random_scene(5000, seed=3, extent=2.0,
-                             scale_range=(0.01, 0.06))
-    cam = stt.Camera.create(h=64, w=64, position=(0.0, 0.0, 4.0))
+                             scale_range=(0.01, 0.06), device="cpu")
+    cam = stt.Camera.create(h=64, w=64, position=(0.0, 0.0, 4.0),
+                            device="cpu")
     api._AUTO_CONFIG_CACHE.clear()
     img = stt.render(scene, cam)                 # auto -> tiled (N > 4096)
     ref = stt.render_dense(scene, cam)
@@ -99,8 +101,8 @@ def test_render_auto_capacity_cache_and_retry():
 def test_empty_scene_is_background():
     empty = stt.GaussianScene.create(np.zeros((0, 3)), np.zeros((0, 4)),
                                      np.zeros((0, 3)), np.zeros(0),
-                                     np.zeros((0, 16, 3)))
-    cam = stt.Camera.create(h=16, w=24)
+                                     np.zeros((0, 16, 3)), device="cpu")
+    cam = stt.Camera.create(h=16, w=24, device="cpu")
     cfg = stt.RenderConfig(alpha_channel=True, background=(0.2, 0.5, 0.7))
     img, stats = stt.render_tiled(empty, cam, cfg, return_stats=True)
     assert int(stats["num_pairs"]) == 0
