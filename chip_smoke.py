@@ -13,9 +13,11 @@ Phases (any failure raises and exits non-zero):
   3. kernel K2 (tile compositing) against its plain version on the same
      frame: max abs difference <= K2_TOL;
   3b. kernels K3 and K4 (the training forward and backward) against their
-     plain versions on the same frame: C and logT max abs <= K3_TOL, the
-     per-tile cut equal, and K4's per-gaussian gradients per field within
-     K4_REL_TOL of the field's largest value, cosine >= K4_MIN_COS;
+     plain versions on the same frame and on the 1M surface frame, whose
+     heavy tiles the kernels split across blocks: C and logT max abs <=
+     K3_TOL, the per-tile cut equal, and K4's per-gaussian gradients per
+     field within K4_REL_TOL of the field's largest value, cosine >=
+     K4_MIN_COS; prints the longest tile walk and both kernels' times;
   4. the inference path with every launch counter at 0: ``render()`` of
      the committed fitted 20k-splat scene (>= 45 dB against the dense
      renderer), then ``render()`` and a timed yaw sweep of 1M random and
@@ -30,7 +32,10 @@ Phases (any failure raises and exits non-zero):
      @1920x1080 with 2 orbit views and overflow 0;
   7. K3 and K4 must have launched during phase 6.
 The second-to-last line is a JSON object describing each kernel, with its
-bound (the least time the card could take for its work on these inputs);
+bound (the least time the card could take for its work on these inputs:
+bytes over the memory rate, FP32 operations over the FP32 rate, or
+special-function operations over the SFU rate, whichever is largest), and
+for K3 and K4 the surface frame's figures under ``surface_*`` keys;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
 result line when no CUDA device is available.  The port imports no JAX.
 """
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -68,11 +74,22 @@ BIG_FIT_STEPS = 3
 # cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Special-function unit results per SM per clock at compute capability 9.0
+# (CUDA C++ Programming Guide, arithmetic instruction throughput), at the
+# SM clock nvidia-smi reports as the card's maximum.
+SFU_OPS_PER_SM_CLOCK = 16
 # Operations to evaluate one pair's alpha at one pixel (K2/K3/K4): dx, dy,
-# three products, the quadratic form (3 mul + 2 add), expf, the opacity
-# product, the clamp, the alpha_min test.  A kept pair's compositing or
-# gradient work is not counted, so the bound is below what the walk needs.
+# three products, the quadratic form (3 mul + 2 add), the opacity product,
+# the clamp, the alpha_min test, the box test; its expf is one SFU op.
 ALPHA_OPS = 14
+# Per kept (pixel, pair): K3's clamp, weight, 3 colour mul + add, T update
+# (sub, mul) and logT add, with log1pf as one SFU op; K4's clamp, lt_i,
+# min, gc (3 mul + 2 add), weight, dalpha (2 mul, 2 sub), dpower, 6
+# geometry and 3 colour mul + add, D update (mul, add), with log1pf, expf
+# and the division as three SFU ops.
+K3_KEPT_OPS, K3_KEPT_SFU = 10, 1
+K4_KEPT_OPS, K4_KEPT_SFU = 33, 3
+SFU_OPS_PER_S = None      # set by main() from the card
 
 
 def require(cond: bool, msg: str) -> None:
@@ -96,17 +113,19 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """The least milliseconds the card could take: the larger of the bytes
-    over the memory rate and the operations over the FP32 rate."""
+def bound(nbytes: float, ops: float, sfu: float = 0.0) -> tuple[float, str]:
+    """The least milliseconds the card could take: the largest of the
+    bytes over the memory rate, the FP32 operations over the FP32 rate and
+    the special-function operations over the SFU rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(ops / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops):
-    bound_ms, bound_by = bound(nbytes, ops)
+def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops,
+                  sfu=0.0):
+    bound_ms, bound_by = bound(nbytes, ops, sfu)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -191,14 +210,56 @@ def check_raster(bins, h, w, cfg) -> dict:
     return rec
 
 
+def walk_work(bins, h, w, cfg, cut):
+    """What K3's and K4's walk (windows [0, cut) of every tile) must
+    compute, from the plain version's alpha on the same pairs: the pairs
+    walked, and the (pixel, pair) evaluations in the pair's box and the
+    kept ones, over every tile pixel (K3) and over the pixels inside the
+    image (K4)."""
+    import torch
+    from splat_tpu_torch.render import diff
+
+    dev = bins.features.device
+    s = bins.tile_start.long()
+    n = torch.clamp(diff._walk_end(bins, cfg.chunk, cut) - s, min=0)
+    tid = torch.repeat_interleave(torch.arange(n.numel(), device=dev), n)
+    total = int(n.sum())
+    k = s[tid] + torch.arange(total, device=dev) - torch.repeat_interleave(
+        torch.cumsum(n, 0) - n, n)
+    pxf, pyf = diff._pixel_grid(bins, cfg, dev)
+    inside = diff._tile_pixels(torch.ones((h, w, 1), dtype=torch.bool,
+                                          device=dev), bins, cfg)[..., 0]
+    use_bbox = math.isfinite(cfg.sigma_cutoff)
+    counts = torch.zeros(4, dtype=torch.int64, device=dev)
+    step = max(1, (1 << 25) // pxf.shape[1])
+    for i in range(0, total, step):
+        kk, tt = k[i:i + step], tid[i:i + step]
+        fk = bins.features[:, kk]
+        f = [fk[q][:, None] for q in range(fk.shape[0])]
+        _, _, _, keep, _, _, dx2, dy2 = diff._alpha(f, pxf[tt], pyf[tt], cfg,
+                                                    use_bbox)
+        box = ((dx2 <= f[9]) & (dy2 <= f[10]) if use_bbox
+               else torch.ones_like(keep))
+        ins = inside[tt]
+        counts += torch.stack([box.sum(), keep.sum(), (box & ins).sum(),
+                               (keep & ins).sum()])
+    box3, kept3, box4, kept4 = counts.tolist()
+    return {"walked": total, "box3": box3, "kept3": kept3, "box4": box4,
+            "kept4": kept4}
+
+
 def check_train(bins, h, w, cfg):
-    """Phase 3b: K3 and K4 against their plain versions."""
+    """Phase 3b on one frame: K3 and K4 against their plain versions.
+    Returns the two kernel records and the frame's walk."""
     import torch
     from splat_tpu_torch.render import diff
 
     c, lt, cut = diff.rasterize_train_fwd(bins, h, w, cfg)
+    split3 = int(diff.rasterize_train_fwd.split_tiles)
+    t0 = time.perf_counter()
     c_p, lt_p, cut_p = diff.rasterize_train_fwd_plain(bins, h, w, cfg)
     torch.cuda.synchronize()
+    plain3 = (time.perf_counter() - t0) * 1e3
     require(c.shape == (h, w, 3) and lt.shape == (h, w)
             and bool(torch.isfinite(c).all() & torch.isfinite(lt).all()),
             "K3: bad shape or non-finite values")
@@ -209,9 +270,12 @@ def check_train(bins, h, w, cfg):
     g_c = torch.randn((h, w, 3), generator=gen, device=c.device)
     g_lt = torch.randn((h, w), generator=gen, device=c.device)
     g = diff.rasterize_train_bwd(bins, g_c, g_lt, lt, cut, h, w, cfg)
+    split4 = int(diff.rasterize_train_bwd.split_tiles)
+    t0 = time.perf_counter()
     g_p = diff.rasterize_train_bwd_plain(bins, g_c, g_lt, lt, cut, h, w,
                                          cfg)
     torch.cuda.synchronize()
+    plain4 = (time.perf_counter() - t0) * 1e3
     require(bool(torch.isfinite(g).all()), "K4: non-finite gradients")
     rel = max(float((g[:, q] - g_p[:, q]).abs().max())
               / (float(g_p[:, q].abs().max()) + 1e-30)
@@ -224,41 +288,49 @@ def check_train(bins, h, w, cfg):
     err4 = float((g - g_p).abs().max())
 
     ms3 = cuda_ms(lambda: diff.rasterize_train_fwd(bins, h, w, cfg), 10)
-    plain3 = cuda_ms(lambda: diff.rasterize_train_fwd_plain(bins, h, w, cfg),
-                     1, warmup=False)
     ms4 = cuda_ms(lambda: diff.rasterize_train_bwd(bins, g_c, g_lt, lt, cut,
                                                    h, w, cfg), 10)
-    plain4 = cuda_ms(lambda: diff.rasterize_train_bwd_plain(
-        bins, g_c, g_lt, lt, cut, h, w, cfg), 1, warmup=False)
 
     nt = bins.tiles_x * bins.tiles_y
     n = bins.num_gaussians
     pairs = int(bins.num_pairs)
-    _, e, base, nch = diff._windows(bins, cfg.chunk)
-    walk_end = torch.minimum(e, base + torch.minimum(cut.long(), nch)
-                             * cfg.chunk)
-    walked = int(torch.clamp(walk_end - bins.tile_start.long(), min=0).sum())
-    evals = walked * cfg.tile_w * cfg.tile_h
+    work = walk_work(bins, h, w, cfg, cut)
+    longest = int(torch.clamp(diff._walk_end(bins, cfg.chunk, cut)
+                              - bins.tile_start.long(), min=0).max())
     k3 = kernel_record("rasterize_train_fwd",
                        "splat_tpu_torch/csrc/raster_train.cu",
                        "splat_tpu/render/diff.py:211", err3, ms3, plain3,
-                       44 * pairs + 12 * nt + 16 * h * w, ALPHA_OPS * evals)
+                       44 * pairs + 12 * nt + 16 * h * w,
+                       ALPHA_OPS * work["box3"] + K3_KEPT_OPS * work["kept3"],
+                       work["box3"] + K3_KEPT_SFU * work["kept3"])
     # reads the features and owner of each pair, dL/dC, dL/dlogT and logT
     # per pixel; writes 9 floats per gaussian
     k4 = kernel_record("rasterize_train_bwd",
                        "splat_tpu_torch/csrc/raster_train.cu",
                        "splat_tpu/render/diff.py:360", err4, ms4, plain4,
                        52 * pairs + 12 * nt + 20 * h * w + 36 * n,
-                       ALPHA_OPS * evals)
+                       ALPHA_OPS * work["box4"] + K4_KEPT_OPS * work["kept4"],
+                       work["box4"] + K4_KEPT_SFU * work["kept4"])
+    # the bound of alpha evaluations alone at every walked (pixel, pair)
+    alpha_only, _ = bound(0, ALPHA_OPS * work["walked"] * cfg.tile_w
+                          * cfg.tile_h)
+    for rec, split in ((k3, split3), (k4, split4)):
+        rec["alpha_only_bound_ms"] = alpha_only
+        rec["split_tiles"] = split
     print(f"[K3] rasterize_train_fwd: max abs err {err3:.3e} (tol "
-          f"{K3_TOL}), cut equal ({walked} of {pairs} pairs walked); "
-          f"kernel {ms3:.4f} ms, plain {plain3:.4f} ms, bound "
-          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']})")
+          f"{K3_TOL}), cut equal; {work['walked']} of {pairs} pairs "
+          f"walked, longest tile walk {longest}, {split3} tiles split; "
+          f"kernel {ms3:.4f} ms, plain {plain3:.1f} ms, bound "
+          f"{k3['bound_ms']:.4f} ms ({k3['bound_by']}; {work['box3']} "
+          f"pixel-pair evaluations in the box, {work['kept3']} kept; "
+          f"alpha-only bound {alpha_only:.4f} ms)")
     print(f"[K4] rasterize_train_bwd: per-field rel err {rel:.3e} (tol "
           f"{K4_REL_TOL}), cosine {cos:.8f} (min {K4_MIN_COS}), max abs "
-          f"err {err4:.3e}; kernel {ms4:.4f} ms, plain {plain4:.4f} ms, "
-          f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
-    return k3, k4
+          f"err {err4:.3e}; {split4} tiles split; kernel {ms4:.4f} ms, "
+          f"plain {plain4:.1f} ms, bound {k4['bound_ms']:.4f} ms "
+          f"({k4['bound_by']}; {work['box4']} in the box, {work['kept4']} "
+          f"kept)")
+    return k3, k4, longest
 
 
 def main_path(device) -> None:
@@ -394,6 +466,7 @@ def main() -> int:
     import splat_tpu_torch as stt
     from splat_tpu_torch import _build
     from splat_tpu_torch.ops.projection import project_gaussians
+    from splat_tpu_torch.render import binning
     from splat_tpu_torch.render.diff import (rasterize_train_bwd,
                                              rasterize_train_fwd)
     from splat_tpu_torch.render.expand import expand_pair_keys
@@ -404,6 +477,15 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card.splitlines()[0])
+    global SFU_OPS_PER_S
+    max_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SFU_OPS_PER_S = SFU_OPS_PER_SM_CLOCK * sms * max_mhz * 1e6
+    print(f"[card] {sms} SMs, max SM clock {max_mhz:.0f} MHz: SFU "
+          f"{SFU_OPS_PER_S:.4e} ops/s")
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] {_build.library_path().name}: "
@@ -416,8 +498,22 @@ def main() -> int:
     proj = project_gaussians(scene, cam, cfg)
     k1, bins = check_expand(proj, H, W, cfg)
     k2 = check_raster(bins, H, W, cfg)
-    k3, k4 = check_train(bins, H, W, cfg)
+    print(f"[K3/K4] random {N_BIG} @{W}x{H}:")
+    k3, k4, _ = check_train(bins, H, W, cfg)
     del scene, proj, bins
+    # the heavy tiles: the same gates and timings on the surface frame
+    scene, dup = bench_scene("surface", N_BIG, device)
+    cfg = stt.RenderConfig(max_dup_factor=dup)
+    bins = binning.build_tile_bins(project_gaussians(scene, cam, cfg), H, W,
+                                   cfg)
+    print(f"[K3/K4] surface {N_BIG} @{W}x{H}:")
+    s3, s4, longest = check_train(bins, H, W, cfg)
+    for rec, srf in ((k3, s3), (k4, s4)):
+        rec.update({f"surface_{key}": srf[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "alpha_only_bound_ms", "split_tiles")})
+        rec["surface_longest_walk"] = longest
+    del scene, bins
     kernels = (expand_pair_keys, rasterize_tiles, rasterize_train_fwd,
                rasterize_train_bwd)
 

@@ -71,6 +71,12 @@ WINDOW_ALIGN = 128
 ALPHA_LOG_CAP = 0.999999
 # columns of the per-gaussian gradient K4 returns (feature rows 0-8)
 GRAD_COLUMNS = ("cx", "cy", "a2", "b2", "c2", "r", "g", "b", "opacity")
+# the kernels split a tile across min(PPT, SPLIT_BLOCKS) blocks, by pixels
+# (csrc/raster_train.cu), where it walks more than SPLIT_MIN_PAIRS pairs
+# and more than the frame's walk spread over BLOCKS_PER_SM blocks an SM
+SPLIT_MIN_PAIRS = 4096
+SPLIT_BLOCKS = 4
+BLOCKS_PER_SM = 2
 
 
 def _check_config(config: RenderConfig) -> None:
@@ -111,6 +117,56 @@ def _windows(bins: TileBins, chunk: int):
     base = torch.div(s, WINDOW_ALIGN, rounding_mode="floor") * WINDOW_ALIGN
     nch = torch.div(e - base + chunk - 1, chunk, rounding_mode="floor")
     return s, e, base, nch
+
+
+def _walk_end(bins: TileBins, chunk: int, cut):
+    """Per tile (int64): one past the last pair of windows [0, cut)."""
+    _, e, base, nch = _windows(bins, chunk)
+    return torch.minimum(e, base + torch.minimum(cut.to(torch.int64), nch)
+                         * chunk)
+
+
+def _split(ppt: int) -> int:
+    """Blocks per heavy tile: each keeps at least one pixel a thread."""
+    return min(ppt, SPLIT_BLOCKS)
+
+
+def _tile_plan(walk, split: int, slots: int):
+    """The kernels' work list, built on the device without a host sync:
+    tile ids by walk length, longest first (int32), and how many of them
+    are split (a (1,) int32 count).  A tile is split where it walks more
+    than SPLIT_MIN_PAIRS pairs and more than ``walk.sum() / slots``, the
+    mean load of ``slots`` resident blocks: unsplit, it would outlast the
+    rest of the grid.  A balanced frame splits nothing."""
+    order = torch.argsort(walk, descending=True).to(torch.int32)
+    if split > 1:
+        cap = torch.clamp(walk.sum() // slots, min=SPLIT_MIN_PAIRS)
+        heavy = walk > cap
+    else:
+        heavy = torch.zeros_like(walk, dtype=torch.bool)
+    return order, heavy.sum(dtype=torch.int32).reshape(1)
+
+
+def _slots(dev) -> int:
+    """Blocks the card holds at once, as _tile_plan counts them."""
+    return BLOCKS_PER_SM * torch.cuda.get_device_properties(
+        dev).multi_processor_count
+
+
+def _block_work(order, nheavy, split: int):
+    """(tile, group, groups) of every block of a K3/K4 launch of
+    num_tiles * split blocks, as the kernels' work_of() assigns them:
+    group g of a tile holds its pixel slots [g, g + 1) * THREADS * PPT /
+    groups; blocks past the list take no tile."""
+    nt, nh = order.numel(), int(nheavy)
+    work = []
+    for b in range(nt * split):
+        q, r = divmod(b, split)
+        if q < nh:
+            work.append((int(order[q]), r, split))
+        elif nh + (q - nh) * split + r < nt:
+            work.append((int(order[nh + (q - nh) * split + r]), 0, 1))
+    return work
 
 
 def _pixel_grid(bins: TileBins, config: RenderConfig, dev):
@@ -270,10 +326,14 @@ def rasterize_train_fwd(bins: TileBins, h: int, w: int,
     cut = torch.empty((nt,), dtype=torch.int32, device=dev)
     if nt == 0 or h == 0 or w == 0:
         return c_img, lt_img, cut
+    # the walk is not known before the cut: plan by the tile's pairs
+    order, nheavy = _tile_plan(bins.tile_end.to(torch.int64)
+                               - bins.tile_start, _split(ppt), _slots(dev))
     fn = _build.library().splat_rasterize_train_fwd
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(bins.tile_start.data_ptr(), bins.tile_end.data_ptr(),
+                 order.data_ptr(), nheavy.data_ptr(),
                  feats.data_ptr(), feats.shape[1], c_img.data_ptr(),
                  lt_img.data_ptr(), cut.data_ptr(), h, w, config.tile_w,
                  config.tile_h, bins.tiles_x, nt, config.chunk,
@@ -283,10 +343,13 @@ def rasterize_train_fwd(bins: TileBins, h: int, w: int,
                  int(math.isfinite(config.sigma_cutoff)), ppt, stream)
     _build.check(err, "rasterize_train_fwd")
     rasterize_train_fwd.launches += 1
+    rasterize_train_fwd.split_tiles = nheavy
     return c_img, lt_img, cut
 
 
 rasterize_train_fwd.launches = 0
+# the last launch's count of split tiles, a (1,) int32 tensor on the card
+rasterize_train_fwd.split_tiles = None
 
 
 def rasterize_train_bwd_plain(bins: TileBins, g_c, g_lt, lt, cut, h: int,
@@ -383,11 +446,15 @@ def rasterize_train_bwd(bins: TileBins, g_c, g_lt, lt, cut, h: int, w: int,
                       dtype=torch.float32, device=dev)
     if nt == 0 or h == 0 or w == 0 or bins.num_gaussians == 0:
         return out
+    order, nheavy = _tile_plan(
+        torch.clamp(_walk_end(bins, config.chunk, cut) - bins.tile_start,
+                    min=0), _split(ppt), _slots(dev))
     fn = _build.library().splat_rasterize_train_bwd
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(bins.tile_start.data_ptr(), bins.tile_end.data_ptr(),
-                 cut.data_ptr(), feats.data_ptr(), feats.shape[1],
+                 cut.data_ptr(), order.data_ptr(), nheavy.data_ptr(),
+                 feats.data_ptr(), feats.shape[1],
                  bins.ranks.data_ptr(), g_c.data_ptr(), g_lt.data_ptr(),
                  lt.data_ptr(), out.data_ptr(), h, w, config.tile_w,
                  config.tile_h, bins.tiles_x, nt, config.chunk,
@@ -396,10 +463,12 @@ def rasterize_train_bwd(bins: TileBins, g_c, g_lt, lt, cut, h: int, w: int,
                  int(math.isfinite(config.sigma_cutoff)), ppt, stream)
     _build.check(err, "rasterize_train_bwd")
     rasterize_train_bwd.launches += 1
+    rasterize_train_bwd.split_tiles = nheavy
     return out
 
 
 rasterize_train_bwd.launches = 0
+rasterize_train_bwd.split_tiles = None
 
 
 class _RasterCore(torch.autograd.Function):

@@ -17,7 +17,8 @@ from splat_tpu_torch.ops.projection import project_gaussians
 from splat_tpu_torch.render import binning
 from splat_tpu_torch.render.expand import (expand_pair_keys,
                                            expand_pair_keys_plain)
-from splat_tpu_torch.render.diff import (_windows, rasterize_train_bwd,
+from splat_tpu_torch.render.diff import (SPLIT_MIN_PAIRS, _windows,
+                                         rasterize_train_bwd,
                                          rasterize_train_bwd_plain,
                                          rasterize_train_fwd,
                                          rasterize_train_fwd_plain)
@@ -92,25 +93,37 @@ def test_render_on_card_matches_dense_and_cpu(dev):
 K4_REL_TOL = 1e-4      # per field, of the field's max |g|
 K4_MIN_COS = 0.99999
 
+# name: (config, scene); "split" cases have tiles above SPLIT_MIN_PAIRS,
+# which the kernels split across blocks (K3's as a cluster)
 _TRAIN_CASES = {
-    "default": (dict(), 0.999),
-    "deep_exact_cut": (dict(), None),
-    "sat_exit_t16": (dict(train_sat_exit=True, tile_px=16, chunk=64), None),
+    "default": (dict(), "light"),
+    "deep_exact_cut": (dict(), "deep"),
+    "sat_exit_t16": (dict(train_sat_exit=True, tile_px=16, chunk=64),
+                     "deep"),
     "clamp1_sigma_inf": (dict(alpha_clamp=1.0, sigma_cutoff=math.inf,
-                              chunk=256), None),
+                              chunk=256), "deep"),
+    "stacked_split": (dict(), "stacked"),
+    "deep_exact_cut_split": (dict(), "deep"),
+    "sat_exit_split": (dict(train_sat_exit=True), "deep"),
+    "clamp1_sigma_inf_split": (dict(alpha_clamp=1.0, sigma_cutoff=math.inf),
+                               "stacked"),
 }
 
 
 def _train_frame(dev, case, h=200, w=300):
-    cfg_kw, _ = _TRAIN_CASES[case]
+    cfg_kw, kind = _TRAIN_CASES[case]
     cfg = stt.RenderConfig(max_dup_factor=16.0, **cfg_kw)
-    if case == "default":
+    if kind == "light":
         proj = _frame(dev, cfg, h, w)
-    else:   # heavily overlapped, nearly opaque: tiles saturate
-        scene = stt.random_scene(20000, seed=4, extent=1.5,
-                                 scale_range=(0.05, 0.2), device=dev)
-        scene = dataclasses.replace(
-            scene, opacities=torch.full_like(scene.opacities, 0.995))
+    else:
+        if kind == "deep":   # heavily overlapped, nearly opaque: saturates
+            scene = stt.random_scene(20000, seed=4, extent=1.5,
+                                     scale_range=(0.05, 0.2), device=dev)
+            scene = dataclasses.replace(
+                scene, opacities=torch.full_like(scene.opacities, 0.995))
+        else:                # small splats stacked over a few tiles
+            scene = stt.random_scene(8000, seed=4, extent=0.4,
+                                     scale_range=(0.005, 0.03), device=dev)
         cam = stt.Camera.create(h=h, w=w, position=(0.0, 0.0, 4.0),
                                 device=dev)
         proj = project_gaussians(scene, cam, cfg)
@@ -132,9 +145,16 @@ def test_train_kernels_equal_plain(dev, case):
     assert float((c - c_p).abs().max()) <= 1e-4
     assert float((lt - lt_p).abs().max()) <= 1e-4
     assert torch.equal(cut, cut_p)
-    if case == "deep_exact_cut":
-        _, _, base, nch = _windows(bins, cfg.chunk)
-        assert bool((cut.long() < nch).any())     # the cut engaged
+    pairs = (bins.tile_end - bins.tile_start).long()
+    split = case.endswith("_split")
+    if split:    # K3 split at least one tile
+        assert int(rasterize_train_fwd.split_tiles) > 0
+    _, _, base, nch = _windows(bins, cfg.chunk)
+    engaged = cut.long() < nch
+    if case.startswith(("deep_exact_cut", "sat_exit")):
+        assert bool(engaged.any())                  # the cut engaged
+    if split and case.startswith(("deep_exact_cut", "sat_exit")):
+        assert bool((engaged & (pairs > SPLIT_MIN_PAIRS)).any())
     gen = torch.Generator(device=dev).manual_seed(0)
     g_c = torch.randn((h, w, 3), generator=gen, device=dev)
     g_lt = torch.randn((h, w), generator=gen, device=dev)
@@ -142,6 +162,8 @@ def test_train_kernels_equal_plain(dev, case):
     g_p = rasterize_train_bwd_plain(bins, g_c, g_lt, lt, cut, h, w, cfg)
     torch.cuda.synchronize()
     assert rasterize_train_bwd.launches == b0 + 1
+    if split:    # K4 split at least one tile
+        assert int(rasterize_train_bwd.split_tiles) > 0
     assert bool(torch.isfinite(g).all())
     for q in range(g.shape[1]):
         scale = float(g_p[:, q].abs().max()) + 1e-30

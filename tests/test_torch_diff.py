@@ -20,6 +20,7 @@ from splat_tpu.render.binning import build_tile_bins as jax_bins
 import splat_tpu_torch as stt
 from splat_tpu_torch.ops.projection import project_gaussians
 from splat_tpu_torch.render import binning, diff
+from splat_tpu_torch.render.kernels import THREADS
 from test_torch_raster import _port_bins
 
 torch.set_num_threads(1)
@@ -377,3 +378,42 @@ _REFERENCE_CASES = {
 def test_reference_cases(case):
     """The cases of tests/test_diff.py, run on the port."""
     _REFERENCE_CASES[case]()
+
+
+@pytest.mark.parametrize("ppt", [1, 2, 4, 16])
+def test_split_plan_covers_each_pixel_once(ppt):
+    """The kernels' work list: every tile is taken, heavy tiles by
+    ``_split(ppt)`` blocks whose pixel groups cover each of the tile's
+    pixel slots exactly once (each block walks all the tile's pairs for
+    its pixels, so every walked (pixel, pair) is computed once)."""
+    rng = np.random.default_rng(ppt)
+    walk = torch.tensor(rng.integers(0, 3 * diff.SPLIT_MIN_PAIRS, 60))
+    walk[:3] = diff.SPLIT_MIN_PAIRS + 1         # just over the threshold
+    split = diff._split(ppt)
+    order, nheavy = diff._tile_plan(walk, split, slots=1000)
+    assert order.dtype == nheavy.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(walk.numel()))
+    assert bool((walk[order.long()].diff() <= 0).all())  # longest first
+    heavy = walk > diff.SPLIT_MIN_PAIRS
+    assert int(nheavy) == (int(heavy.sum()) if split > 1 else 0)
+    slots = THREADS * ppt
+    covered = {t: [] for t in range(walk.numel())}
+    for tile, group, groups in diff._block_work(order, nheavy, split):
+        assert groups == (split if bool(heavy[tile]) and split > 1 else 1)
+        per = slots // groups                   # ppt / groups a thread
+        covered[tile] += range(group * per, (group + 1) * per)
+    for t, pix in covered.items():
+        assert sorted(pix) == list(range(slots)), t
+
+
+def test_split_plan_adapts_to_the_frame():
+    """A tile is split only where it walks more than the frame's walk
+    spread over the resident blocks: a balanced frame splits nothing."""
+    walk = torch.full((100,), 5000, dtype=torch.int64)
+    walk[7] = 9000
+    _, nheavy = diff._tile_plan(walk, 4, slots=264)     # mean 1909
+    assert int(nheavy) == 100
+    _, nheavy = diff._tile_plan(walk, 4, slots=60)      # mean 8400
+    assert int(nheavy) == 1
+    _, nheavy = diff._tile_plan(walk, 4, slots=50)      # mean 10080
+    assert int(nheavy) == 0
