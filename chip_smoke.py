@@ -8,13 +8,14 @@ Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
      ``splat_tpu_torch/csrc`` and print the build time;
   2. kernel K1 (pair expansion) against its plain PyTorch version at 1M
-     gaussians @1920x1080: keys, owners, tile edges, num_pairs and overflow
-     must be exactly equal;
+     random gaussians @1920x1080 and at 1M surface gaussians: keys, owners,
+     tile edges, num_pairs and overflow must be exactly equal;
   3. kernel K2 (tile compositing) against its plain version on the same
-     frame: max abs difference <= K2_TOL;
+     two frames: max abs difference <= K2_TOL, and at the surface frame,
+     whose heavy tiles the kernels split across blocks, at least one tile
+     split;
   3b. kernels K3 and K4 (the training forward and backward) against their
-     plain versions on the same frame and on the 1M surface frame, whose
-     heavy tiles the kernels split across blocks: C and logT max abs <=
+     plain versions on the same two frames: C and logT max abs <=
      K3_TOL, the per-tile cut equal, and K4's per-gaussian gradients per
      field within K4_REL_TOL of the field's largest value, cosine >=
      K4_MIN_COS; prints the longest tile walk and both kernels' times;
@@ -35,7 +36,7 @@ The second-to-last line is a JSON object describing each kernel, with its
 bound (the least time the card could take for its work on these inputs:
 bytes over the memory rate, FP32 operations over the FP32 rate, or
 special-function operations over the SFU rate, whichever is largest), and
-for K3 and K4 the surface frame's figures under ``surface_*`` keys;
+the surface frame's figures under ``surface_*`` keys;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
 result line when no CUDA device is available.  The port imports no JAX.
 """
@@ -89,6 +90,13 @@ ALPHA_OPS = 14
 # and the division as three SFU ops.
 K3_KEPT_OPS, K3_KEPT_SFU = 10, 1
 K4_KEPT_OPS, K4_KEPT_SFU = 33, 3
+# K2 per kept (pixel, pair): the weight, 3 colour mul + add, the T update
+# (sub, mul); no special-function operation
+K2_KEPT_OPS, K2_KEPT_SFU = 9, 0
+# A short kernel is timed behind this many cycles of a spinning kernel, so
+# that the host has queued every launch before the first one starts
+# (~5 ms; K1 takes less on the card than its wrapper takes on the host).
+HOLD_CYCLES = 10_000_000
 SFU_OPS_PER_S = None      # set by main() from the card
 
 
@@ -105,6 +113,7 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -174,6 +183,7 @@ def check_expand(proj, h, w, cfg):
                         "splat_tpu/render/expand.py:85",
                         float((keys - keys_p).abs().max()), ms, plain_ms,
                         24 * n + 8 + 16 * lay.k_cap, 0)
+    rec["longest_walk"] = int((bins.tile_end - bins.tile_start).max())
     print(f"[K1] expand_pair_keys: k_cap={lay.k_cap} pairs={num_pairs} "
           f"overflow={overflow}: exact match; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -181,47 +191,65 @@ def check_expand(proj, h, w, cfg):
     return rec, bins
 
 
-def check_raster(bins, h, w, cfg) -> dict:
-    """Phase 3: K2 against its plain version."""
+def check_raster(bins, h, w, cfg, plain_reps: int) -> dict:
+    """Phase 3 on one frame: K2 against its plain version.  The plain
+    version is timed over ``plain_reps`` calls, or, with 0, as the one call
+    that is compared."""
     import torch
     from splat_tpu_torch.render.kernels import (rasterize_tiles,
                                                 rasterize_tiles_plain)
 
     img = rasterize_tiles(bins, h, w, cfg)
+    split = int(rasterize_tiles.split_tiles)
+    t0 = time.perf_counter()
     img_p, walked = rasterize_tiles_plain(bins, h, w, cfg,
                                           return_walked=True)
     torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     require(img.shape == (h, w, 3) and bool(torch.isfinite(img).all()),
             f"K2 image shape {tuple(img.shape)} or non-finite values")
     err = float((img - img_p).abs().max())
     require(err <= K2_TOL, f"K2 max abs error {err} > {K2_TOL}")
     ms = cuda_ms(lambda: rasterize_tiles(bins, h, w, cfg), 20)
-    plain_ms = cuda_ms(lambda: rasterize_tiles_plain(bins, h, w, cfg), 2)
+    if plain_reps:
+        plain_ms = cuda_ms(lambda: rasterize_tiles_plain(bins, h, w, cfg),
+                           plain_reps)
     nt = bins.tiles_x * bins.tiles_y
-    evals = int(walked.sum()) * cfg.tile_w * cfg.tile_h
+    # the work of the pairs K2's exit lets each tile walk, over every tile
+    # pixel (pixels past the image edge are composited too: they vote);
+    # the bytes too: the features of a pair past the exit are never read
+    work = walk_work(bins, h, w, cfg, walked)
     rec = kernel_record("rasterize_tiles", "splat_tpu_torch/csrc/raster.cu",
                         "splat_tpu/render/kernels.py:123", err, ms, plain_ms,
-                        44 * int(bins.num_pairs) + 8 * nt + 12 * h * w,
-                        ALPHA_OPS * evals)
+                        44 * work["walked"] + 8 * nt + 12 * h * w,
+                        ALPHA_OPS * work["box3"] + K2_KEPT_OPS * work["kept3"],
+                        work["box3"] + K2_KEPT_SFU * work["kept3"])
+    # the bound of alpha evaluations alone at every walked (pixel, pair)
+    rec["alpha_only_bound_ms"], _ = bound(
+        0, ALPHA_OPS * work["walked"] * cfg.tile_w * cfg.tile_h)
+    rec["split_tiles"] = split
+    rec["longest_walk"] = int(walked.max())
     print(f"[K2] rasterize_tiles: max abs err {err:.3e} (tol {K2_TOL}); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {evals} "
-          f"pixel-pair evaluations)")
+          f"{work['walked']} of {int(bins.num_pairs)} pairs walked, longest "
+          f"tile walk {rec['longest_walk']}, {split} tiles split; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {work['box3']} "
+          f"pixel-pair evaluations in the box, {work['kept3']} kept; "
+          f"alpha-only bound {rec['alpha_only_bound_ms']:.4f} ms)")
     return rec
 
 
-def walk_work(bins, h, w, cfg, cut):
-    """What K3's and K4's walk (windows [0, cut) of every tile) must
+def walk_work(bins, h, w, cfg, n):
+    """What a walk of the first ``n[t]`` pairs of every tile t must
     compute, from the plain version's alpha on the same pairs: the pairs
     walked, and the (pixel, pair) evaluations in the pair's box and the
-    kept ones, over every tile pixel (K3) and over the pixels inside the
-    image (K4)."""
+    kept ones, over every tile pixel (K2, K3) and over the pixels inside
+    the image (K4)."""
     import torch
     from splat_tpu_torch.render import diff
 
     dev = bins.features.device
     s = bins.tile_start.long()
-    n = torch.clamp(diff._walk_end(bins, cfg.chunk, cut) - s, min=0)
     tid = torch.repeat_interleave(torch.arange(n.numel(), device=dev), n)
     total = int(n.sum())
     k = s[tid] + torch.arange(total, device=dev) - torch.repeat_interleave(
@@ -250,7 +278,7 @@ def walk_work(bins, h, w, cfg, cut):
 
 def check_train(bins, h, w, cfg):
     """Phase 3b on one frame: K3 and K4 against their plain versions.
-    Returns the two kernel records and the frame's walk."""
+    Returns the two kernel records."""
     import torch
     from splat_tpu_torch.render import diff
 
@@ -294,13 +322,15 @@ def check_train(bins, h, w, cfg):
     nt = bins.tiles_x * bins.tiles_y
     n = bins.num_gaussians
     pairs = int(bins.num_pairs)
-    work = walk_work(bins, h, w, cfg, cut)
-    longest = int(torch.clamp(diff._walk_end(bins, cfg.chunk, cut)
-                              - bins.tile_start.long(), min=0).max())
+    # windows [0, cut) of every tile: the pairs whose features are read
+    walked = torch.clamp(diff._walk_end(bins, cfg.chunk, cut)
+                         - bins.tile_start.long(), min=0)
+    work = walk_work(bins, h, w, cfg, walked)
+    longest = int(walked.max())
     k3 = kernel_record("rasterize_train_fwd",
                        "splat_tpu_torch/csrc/raster_train.cu",
                        "splat_tpu/render/diff.py:211", err3, ms3, plain3,
-                       44 * pairs + 12 * nt + 16 * h * w,
+                       44 * work["walked"] + 12 * nt + 16 * h * w,
                        ALPHA_OPS * work["box3"] + K3_KEPT_OPS * work["kept3"],
                        work["box3"] + K3_KEPT_SFU * work["kept3"])
     # reads the features and owner of each pair, dL/dC, dL/dlogT and logT
@@ -308,7 +338,7 @@ def check_train(bins, h, w, cfg):
     k4 = kernel_record("rasterize_train_bwd",
                        "splat_tpu_torch/csrc/raster_train.cu",
                        "splat_tpu/render/diff.py:360", err4, ms4, plain4,
-                       52 * pairs + 12 * nt + 20 * h * w + 36 * n,
+                       52 * work["walked"] + 12 * nt + 20 * h * w + 36 * n,
                        ALPHA_OPS * work["box4"] + K4_KEPT_OPS * work["kept4"],
                        work["box4"] + K4_KEPT_SFU * work["kept4"])
     # the bound of alpha evaluations alone at every walked (pixel, pair)
@@ -317,6 +347,7 @@ def check_train(bins, h, w, cfg):
     for rec, split in ((k3, split3), (k4, split4)):
         rec["alpha_only_bound_ms"] = alpha_only
         rec["split_tiles"] = split
+        rec["longest_walk"] = longest
     print(f"[K3] rasterize_train_fwd: max abs err {err3:.3e} (tol "
           f"{K3_TOL}), cut equal; {work['walked']} of {pairs} pairs "
           f"walked, longest tile walk {longest}, {split3} tiles split; "
@@ -330,7 +361,7 @@ def check_train(bins, h, w, cfg):
           f"plain {plain4:.1f} ms, bound {k4['bound_ms']:.4f} ms "
           f"({k4['bound_by']}; {work['box4']} in the box, {work['kept4']} "
           f"kept)")
-    return k3, k4, longest
+    return k3, k4
 
 
 def main_path(device) -> None:
@@ -466,7 +497,6 @@ def main() -> int:
     import splat_tpu_torch as stt
     from splat_tpu_torch import _build
     from splat_tpu_torch.ops.projection import project_gaussians
-    from splat_tpu_torch.render import binning
     from splat_tpu_torch.render.diff import (rasterize_train_bwd,
                                              rasterize_train_fwd)
     from splat_tpu_torch.render.expand import expand_pair_keys
@@ -492,28 +522,27 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
 
     device = torch.device("cuda", 0)
-    scene, dup = bench_scene("random", N_BIG, device)
-    cfg = stt.RenderConfig(max_dup_factor=dup)
     cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
-    proj = project_gaussians(scene, cam, cfg)
-    k1, bins = check_expand(proj, H, W, cfg)
-    k2 = check_raster(bins, H, W, cfg)
-    print(f"[K3/K4] random {N_BIG} @{W}x{H}:")
-    k3, k4, _ = check_train(bins, H, W, cfg)
-    del scene, proj, bins
-    # the heavy tiles: the same gates and timings on the surface frame
-    scene, dup = bench_scene("surface", N_BIG, device)
-    cfg = stt.RenderConfig(max_dup_factor=dup)
-    bins = binning.build_tile_bins(project_gaussians(scene, cam, cfg), H, W,
-                                   cfg)
-    print(f"[K3/K4] surface {N_BIG} @{W}x{H}:")
-    s3, s4, longest = check_train(bins, H, W, cfg)
-    for rec, srf in ((k3, s3), (k4, s4)):
+    recs = {}
+    # the surface frame holds the heavy tiles; its plain versions walk
+    # 43,502 pairs one by one, so K2's is timed as the one compared call
+    for kind, k2_plain_reps in (("random", 2), ("surface", 0)):
+        scene, dup = bench_scene(kind, N_BIG, device)
+        cfg = stt.RenderConfig(max_dup_factor=dup)
+        proj = project_gaussians(scene, cam, cfg)
+        print(f"[K1-K4] {kind} {N_BIG} @{W}x{H}:")
+        k1, bins = check_expand(proj, H, W, cfg)
+        k2 = check_raster(bins, H, W, cfg, k2_plain_reps)
+        recs[kind] = (k1, k2, *check_train(bins, H, W, cfg))
+        del scene, proj, bins
+    k1, k2, k3, k4 = recs["random"]
+    for rec, srf in zip(recs["random"], recs["surface"]):
         rec.update({f"surface_{key}": srf[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-            "alpha_only_bound_ms", "split_tiles")})
-        rec["surface_longest_walk"] = longest
-    del scene, bins
+            "alpha_only_bound_ms", "split_tiles", "longest_walk")
+            if key in srf})
+    require(k2["surface_split_tiles"] > 0,
+            "K2 split no tile at the surface frame")
     kernels = (expand_pair_keys, rasterize_tiles, rasterize_train_fwd,
                rasterize_train_bwd)
 

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (counterpart of
 ``splat_tpu/native/build.py``).
 
-``csrc/*.cu`` are compiled with ``nvcc`` for Hopper (``sm_90a``), one
-process per source, all started together, and linked into one shared
+``csrc/*.cu`` (with the headers ``csrc/*.cuh`` they include) are compiled
+with ``nvcc`` for Hopper (``sm_90a``), one process per source, all started
+together, and linked into one shared
 library with a plain C interface, at first use, under
 ``build/kernels/`` at the root of the checkout.  The file name carries a
 hash of the sources and flags, so an edit rebuilds and an unchanged tree
@@ -37,14 +38,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "splat_expand_pairs": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P, _P,
                            _P],
-    "splat_rasterize": [_P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                        _F, _F, _F, _F, _I, _I, _I, _P],
+    "splat_rasterize": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
     "splat_rasterize_train_fwd": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _I,
-                                  _I, _I, _P],
-    "splat_rasterize_train_bwd": [_P, _P, _P, _P, _P, _P, _L, _P, _P, _P,
-                                  _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-                                  _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _P],
+    "splat_rasterize_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _P,
+                                  _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                                  _F, _I, _I, _I, _I, _I, _P],
+    "splat_strip_reaches": [_P, _P, _P, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -64,7 +66,8 @@ def _nvcc() -> str:
 def library_path() -> pathlib.Path:
     """Where the library for the current sources lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    # the headers too: an edited header must not reuse a stale library
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsplat_tpu_torch_{h.hexdigest()[:16]}.so"

@@ -34,7 +34,8 @@
 //   with one block per tile, that block was the whole kernel's time while
 //   the other SMs idled.  Tiles that walk more than SPLIT_MIN_PAIRS pairs
 //   and more than the frame's mean load of a resident block (decided on
-//   the device, diff.py::_tile_plan) are split by pixels across
+//   the device by raster_common.cuh's raster_plan_kernel, just before each
+//   launch) are split by pixels across
 //   split_of(PPT) blocks, each with PPT / split pixels per thread; heavy
 //   tiles come first in the grid, then the light ones, longest first.  K4
 //   has no vote: each block walks its own pixels and adds its own pair sums.
@@ -62,124 +63,17 @@
 // K4's pixel sums and atomics add in another order.
 
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "raster_common.cuh"
 
 namespace cg = cooperative_groups;
 
-#define TNF 11            // cx, cy, a2, b2, c2, r, g, b, opacity, rx^2, ry^2
 #define WINDOW_ALIGN 128  // windows start at (tile_start / 128) * 128
 #define SAT_CHECK_EVERY 4
 #define ALPHA_LOG_CAP 0.999999f
-#define THREADS 256
 #define NWARPS 8
 #define BWD_BATCH 64
 #define NG 9              // dcx, dcy, da2, db2, dc2, dr, dg, db, dop
-#define FULL 0xffffffffu
-
-// Blocks per heavy tile (diff.py's _split): each keeps >= 1 pixel a thread.
-__host__ __device__ constexpr int split_of(int ppt) {
-  return ppt < 4 ? ppt : 4;
-}
-
-// A pair's features in shared memory, as three float4:
-// {cx, cy, rx^2, ry^2}, {a2, b2, c2, opacity}, {r, g, b, 0}.
-__device__ __forceinline__ void stage_pair(float4* dst,
-                                           const float* __restrict__ feats,
-                                           int64_t kp, int64_t k) {
-  dst[0] = make_float4(feats[k], feats[kp + k], feats[9 * kp + k],
-                       feats[10 * kp + k]);
-  dst[1] = make_float4(feats[2 * kp + k], feats[3 * kp + k],
-                       feats[4 * kp + k], feats[8 * kp + k]);
-  dst[2] = make_float4(feats[5 * kp + k], feats[6 * kp + k],
-                       feats[7 * kp + k], 0.f);
-}
-
-struct Alpha {
-  float dx, dy, dx2, dy2, expp, a_raw, alpha;
-  bool keep;
-};
-
-// One pair's alpha at one pixel, as rasterize_train_fwd_plain computes it.
-__device__ __forceinline__ Alpha pair_alpha(float px, float py, float4 g0,
-                                            float4 g1, float alpha_clamp,
-                                            float alpha_min, int use_bbox) {
-  Alpha a;
-  a.dx = __fsub_rn(px, g0.x);
-  a.dy = __fsub_rn(g0.y, py);
-  a.dx2 = __fmul_rn(a.dx, a.dx);
-  a.dy2 = __fmul_rn(a.dy, a.dy);
-  const float power =
-      __fadd_rn(__fadd_rn(__fmul_rn(g1.x, a.dx2), __fmul_rn(g1.z, a.dy2)),
-                __fmul_rn(g1.y, __fmul_rn(a.dx, a.dy)));
-  a.expp = expf(power);
-  a.a_raw = __fmul_rn(g1.w, a.expp);
-  a.alpha = fminf(alpha_clamp, a.a_raw);
-  a.keep = a.alpha >= alpha_min;
-  if (use_bbox) a.keep = a.keep && a.dx2 <= g0.z && a.dy2 <= g0.w;
-  return a;
-}
-
-// The pixel rectangle that holds a warp's strip (tile pixels
-// [pa, pb]); `any` is false when the warp holds no tile pixel.
-struct Strip {
-  float xa, xb, ya, yb;
-  bool any;
-};
-
-template <int P>
-__device__ __forceinline__ Strip warp_strip(int base, int npix, int tile_w,
-                                            int x0, int y0) {
-  Strip st;
-  const int pa = base + (threadIdx.x >> 5) * 32 * P;
-  const int pb = min(pa + 32 * P, npix) - 1;
-  st.any = pa < npix;
-  const int ra = pa / tile_w, rb = pb / tile_w;
-  st.xa = (float)(x0 + (ra == rb ? pa % tile_w : 0));
-  st.xb = (float)(x0 + (ra == rb ? pb % tile_w : tile_w - 1));
-  st.ya = (float)(y0 + ra);
-  st.yb = (float)(y0 + rb);
-  return st;
-}
-
-// The least squared offset, rounded as pair_alpha rounds it, from c to an
-// integer pixel coordinate in [lo, hi]: the offset grows on either side of
-// c, so the nearest integer below or above c (clamped) is the minimum.
-__device__ __forceinline__ float nearest_d2(float c, float lo, float hi) {
-  const float f = floorf(c);
-  const float a = __fsub_rn(fminf(fmaxf(f, lo), hi), c);
-  const float b = __fsub_rn(fminf(fmaxf(f + 1.f, lo), hi), c);
-  return fminf(__fmul_rn(a, a), __fmul_rn(b, b));
-}
-
-// False only if no pixel of the strip passes the pair's box test, so no
-// pixel keeps the pair (a NaN centre fails both tests alike).
-__device__ __forceinline__ bool strip_reaches(const Strip& st, float4 g0) {
-  return nearest_d2(g0.x, st.xa, st.xb) <= g0.z &&
-         nearest_d2(g0.y, st.ya, st.yb) <= g0.w;
-}
-
-// Which tile, and which of its pixel groups, a block takes: the first
-// nheavy clusters of `split` blocks each take one heavy tile, the blocks
-// after them one light tile each, in `order` (longest walk first).
-struct Work {
-  int tile, group, split;
-};
-
-__device__ __forceinline__ bool work_of(const int32_t* __restrict__ order,
-                                        const int32_t* __restrict__ nheavy,
-                                        int num_tiles, int split, Work* w) {
-  const int q = blockIdx.x / split, r = blockIdx.x % split;
-  const int nh = *nheavy;
-  if (q < nh) {
-    *w = {order[q], r, split};
-    return true;
-  }
-  const int i = nh + (q - nh) * split + r;
-  if (i >= num_tiles) return false;
-  *w = {order[i], 0, 1};
-  return true;
-}
 
 struct FwdArgs {
   const int32_t* tile_start;
@@ -565,21 +459,28 @@ static cudaError_t launch_fwd(const FwdArgs& a, const int32_t* order,
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
+// Builds the work list into order[num_tiles] and nheavy[1] (the walk is not
+// known before the cut: the plan goes by the tile's pairs), then runs K3.
 extern "C" int splat_rasterize_train_fwd(
-    const void* tile_start, const void* tile_end, const void* order,
-    const void* nheavy, const void* feats, int64_t kp, void* out_c,
+    const void* tile_start, const void* tile_end, void* order,
+    void* nheavy, const void* feats, int64_t kp, void* out_c,
     void* out_lt, void* out_cut, int H, int W, int tile_w, int tile_h,
     int tiles_x, int num_tiles, int chunk, float alpha_clamp,
     float alpha_min, int log_cap, float sat_cut_log, int sat_exit,
-    int use_bbox, int ppt, void* stream) {
+    int use_bbox, int ppt, int slots, int min_pairs, void* stream) {
   const FwdArgs a = {(const int32_t*)tile_start, (const int32_t*)tile_end,
                      (const float*)feats, kp, (float*)out_c, (float*)out_lt,
                      (int32_t*)out_cut, H, W, tile_w, tile_h, tiles_x, chunk,
                      alpha_clamp, alpha_min, log_cap, sat_cut_log, sat_exit,
                      use_bbox};
-  const int32_t* o = (const int32_t*)order;
-  const int32_t* nh = (const int32_t*)nheavy;
+  int32_t* o = (int32_t*)order;
+  int32_t* nh = (int32_t*)nheavy;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (ppt < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = plan_tiles(a.tile_start, a.tile_end, num_tiles,
+                                     split_of(ppt), slots, min_pairs, o, nh,
+                                     st);
+  if (err != cudaSuccess) return (int)err;
   switch (ppt) {
     case 1: return (int)launch_fwd<1>(a, o, nh, num_tiles, st);
     case 2: return (int)launch_fwd<2>(a, o, nh, num_tiles, st);
@@ -590,22 +491,32 @@ extern "C" int splat_rasterize_train_fwd(
   }
 }
 
+// Builds the work list from the walks [tile_start, walk_end) that the
+// forward's cut leaves (walk_end[num_tiles], one past each tile's last
+// walked pair) into order[num_tiles] and nheavy[1], then runs K4.
 extern "C" int splat_rasterize_train_bwd(
     const void* tile_start, const void* tile_end, const void* cut,
-    const void* order, const void* nheavy, const void* feats, int64_t kp,
+    const void* walk_end, void* order, void* nheavy, const void* feats,
+    int64_t kp,
     const void* ranks, const void* g_c, const void* g_lt, const void* lt,
     void* out, int H, int W, int tile_w, int tile_h, int tiles_x,
     int num_tiles, int chunk, float alpha_clamp, float alpha_min,
-    int log_cap, int use_bbox, int ppt, void* stream) {
+    int log_cap, int use_bbox, int ppt, int slots, int min_pairs,
+    void* stream) {
   const BwdArgs a = {(const int32_t*)tile_start, (const int32_t*)tile_end,
                      (const int32_t*)cut, (const float*)feats, kp,
                      (const int64_t*)ranks, (const float*)g_c,
                      (const float*)g_lt, (const float*)lt, (float*)out, H, W,
                      tile_w, tile_h, tiles_x, chunk, alpha_clamp, alpha_min,
                      log_cap, use_bbox};
-  const int32_t* o = (const int32_t*)order;
-  const int32_t* nh = (const int32_t*)nheavy;
+  int32_t* o = (int32_t*)order;
+  int32_t* nh = (int32_t*)nheavy;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (ppt < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = plan_tiles(a.tile_start, (const int32_t*)walk_end,
+                                     num_tiles, split_of(ppt), slots,
+                                     min_pairs, o, nh, st);
+  if (err != cudaSuccess) return (int)err;
 #define SPLAT_BWD(P)                                                        \
   train_bwd_kernel<P><<<num_tiles * split_of(P), THREADS, 0, st>>>(         \
       a, o, nh, num_tiles)

@@ -7,8 +7,10 @@ within-span index r = k - first_slot[g], the tile
 (tile << 32) | f32 bits of the owner's depth; slots from min(total, k_cap)
 on get the sentinel key ``num_tiles << 32`` and owner 0.
 
-The card runs the hand-written kernel ``csrc/expand.cu``; CPU tensors take
-:func:`expand_pair_keys_plain`, which computes the same integers.  The TPU
+The card runs the hand-written kernel ``csrc/expand.cu`` (a block takes
+1,024 consecutive slots, finds the owners of its first and last slot and
+searches the others in a copy of that range in shared memory); CPU tensors
+take :func:`expand_pair_keys_plain`, which computes the same integers.  The TPU
 version's byte-split one-hot matmul, 24-bit depth quantization and fake
 slots for invisible gaussians exist only for the TPU and are gone.
 """

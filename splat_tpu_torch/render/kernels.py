@@ -12,9 +12,12 @@ sorted array) the whole tile stops once every one of its pixels has
 T < alpha_min.  Output: clip(C + T*background) plus clip(1 - T) with
 alpha_channel, as (H, W, C).
 
-The card runs the hand-written kernel ``csrc/raster.cu``; CPU tensors take
-:func:`rasterize_tiles_plain`, which performs the same float operations in
-the same order, so the two differ only where the libraries' rounding does.
+The card runs the hand-written kernel ``csrc/raster.cu``, which splits
+heavy tiles by pixels across the blocks of a cluster (the work list of
+``render/plan.py``, built on the card just before the launch) and lets
+each warp skip the pairs whose box misses its pixel strip; CPU tensors take :func:`rasterize_tiles_plain`, which performs
+the same float operations in the same order, so the two differ only where
+the libraries' rounding does.
 The TPU kernel's prefix-product/MXU machinery and its phase compaction
 (``subtile_exit``) are not ported.
 """
@@ -28,11 +31,12 @@ import torch
 from splat_tpu_torch import _build
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.render.binning import FEATURE_DIM, TileBins
+from splat_tpu_torch.render import plan
+from splat_tpu_torch.render.plan import THREADS
 
-THREADS = 256
 # pixels per thread the kernel is instantiated for (tile <= 16 * 256 px)
 _PPT = (1, 2, 4, 8, 16)
-# the batch lives in the default 48 KB of shared memory
+# the largest batch the kernels accept
 _MAX_CHUNK = (48 * 1024) // (4 * FEATURE_DIM)
 
 
@@ -157,17 +161,28 @@ def rasterize_tiles(bins: TileBins, h: int, w: int,
     if nt == 0 or h == 0 or w == 0:
         return out
     bg = [float(c) for c in config.background]
+    # the launch's work list, built on the card: tile ids, then the count
+    # of split tiles
+    work = torch.empty((nt + 1,), dtype=torch.int32, device=dev)
     fn = _build.library().splat_rasterize
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(bins.tile_start.data_ptr(), bins.tile_end.data_ptr(),
+                 work.data_ptr(), work.data_ptr() + 4 * nt,
                  feats.data_ptr(), feats.shape[1], out.data_ptr(), h, w, tw,
                  th, bins.tiles_x, nt, config.chunk, config.alpha_clamp,
                  config.alpha_min, bg[0], bg[1], bg[2], nchan,
-                 int(math.isfinite(config.sigma_cutoff)), ppt, stream)
+                 int(math.isfinite(config.sigma_cutoff)), ppt,
+                 plan._slots(dev), plan.SPLIT_MIN_PAIRS, stream)
     _build.check(err, "rasterize_tiles")
     rasterize_tiles.launches += 1
+    rasterize_tiles.split_tiles = work[nt:]
+    rasterize_tiles.tile_order = work[:nt]
     return out
 
 
 rasterize_tiles.launches = 0
+# the last launch's count of split tiles, a (1,) int32 tensor on the card
+rasterize_tiles.split_tiles = None
+# and the order in which its blocks took the tiles, (T,) int32
+rasterize_tiles.tile_order = None

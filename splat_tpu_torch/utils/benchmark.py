@@ -152,6 +152,8 @@ def main(argv=None) -> int:
     ap.add_argument("--w", type=int, default=1920)
     ap.add_argument("--views", type=int, default=2)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--frames", type=int, default=30,
+                    help="frames of each timed sweep (frame)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("benchmark: no CUDA device")
@@ -168,13 +170,30 @@ def main(argv=None) -> int:
     cam = Camera.create(h=args.h, w=args.w, position=(0.0, 0.0, 4.0),
                         device=dev)
     if args.what == "frame":
-        out = profile_frames(scene, cam, cfg)
+        # the sweep's wall time without the profiler, then its profile
+        sweeps = [chained_bench(scene, cam, cfg, args.frames)
+                  for _ in range(3)]
+        if any(s["overflow"] for s in sweeps):
+            raise SystemExit(f"benchmark: overflow {sweeps[0]['overflow']}")
+        out = profile_frames(scene, cam, cfg, top=30)
+        out = {"sweep_ms_per_frame": [s["ms_per_frame"] for s in sweeps],
+               "sweep_frames": args.frames,
+               "num_pairs": sweeps[0]["num_pairs"], **out,
+               "idle_share_of_median_sweep": 1.0 - out["device_busy_ms"]
+               / sorted(s["ms_per_frame"] for s in sweeps)[1]}
     else:
         cams = orbit_trajectory(cam, args.views, yaw_sweep=0.05)
         targets = torch.stack([render(scene, c, cfg) for c in cams])
         start = dataclasses.replace(scene, sh=scene.sh * 0.8)
         out = profile_fit_steps(start, cams, targets, cfg, steps=args.steps,
                                 lr=5e-3, l1_weight=0.2, dssim_weight=0.2)
+    # kernel names cut to a readable length (PyTorch's run to 1,000
+    # characters); names that then coincide are added up
+    short: dict[str, float] = {}
+    for name, ms in out["kernels_ms"].items():
+        key = name if len(name) <= 100 else name[:100] + "..."
+        short[key] = short.get(key, 0.0) + ms
+    out["kernels_ms"] = short
     out = {"device": torch.cuda.get_device_name(0), "what": args.what,
            "scene": args.scene, "n": args.n, "h": args.h, "w": args.w,
            **({"views": args.views, "steps": args.steps}

@@ -54,7 +54,7 @@ _OLD_FWD = [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
 _OLD_BWD = [_P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
             _I, _F, _F, _I, _I, _I, _P]
 
-_PROBE_TAIL = r"""
+_PROBE_HELPERS = r"""
 __device__ __forceinline__ long long probe_now() {
   long long t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -70,6 +70,9 @@ __device__ __forceinline__ void probe_stamp(long long* times, long long t0) {
     times[3 * blockIdx.x + 2] = sm;
   }
 }
+"""
+
+_PROBE_TAIL = _PROBE_HELPERS + r"""
 __global__ void __launch_bounds__(256) probe_fwd_kernel(
     const int32_t* ts, const int32_t* te, const float* feats, int64_t kp,
     float* oc, float* olt, int32_t* ocut, int H, int W, int tile_w,
@@ -123,8 +126,9 @@ extern "C" int probe_bwd(const void* ts, const void* te, const void* cut,
 
 
 def _nvcc(src: pathlib.Path, out: pathlib.Path, verbose: bool) -> str:
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
-           str(src)] + (["-Xptxas", "-v"] if verbose else [])
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+           "-shared", "-o", str(out), str(src)] + (
+               ["-Xptxas", "-v"] if verbose else [])
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{res.stderr}")
@@ -184,19 +188,42 @@ def load_old(old: pathlib.Path, probe: bool) -> ctypes.CDLL:
     return lib
 
 
-def current_registers() -> None:
-    src = _build.CSRC / "raster_train.cu"
-    log = _nvcc(src, PROBE_DIR / "current.so", verbose=True)
-    print("[regs] current raster_train.cu: " + "; ".join(_registers(log)),
+def current_registers(name: str = "raster_train.cu") -> None:
+    PROBE_DIR.mkdir(parents=True, exist_ok=True)
+    log = _nvcc(_build.CSRC / name, PROBE_DIR / f"current_{name}.so",
+                verbose=True)
+    print(f"[regs] current {name}: " + "; ".join(_registers(log)),
           flush=True)
 
 
-def frame(kind: str, dev):
-    """Bins of the 1M @1080p frames of chip_smoke.py."""
+def current_source(name: str) -> str:
+    """A current source with the shared header written out in place of its
+    include, so that text substitutions reach the shared code too."""
+    text = (_build.CSRC / name).read_text()
+    include = '#include "raster_common.cuh"\n'
+    if text.count(include) != 1:
+        raise RuntimeError(f"{name}: shared header not included once")
+    header = (_build.CSRC / "raster_common.cuh").read_text()
+    return text.replace(include, header.replace("#pragma once\n", ""))
+
+
+def _bind(lib_path, entries) -> ctypes.CDLL:
+    """A library bound as _build binds the port's, for ``entries``."""
+    lib = ctypes.CDLL(str(lib_path))
+    for name in entries:
+        fn = getattr(lib, name)
+        fn.argtypes = _build._SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+TRAIN_ENTRIES = ("splat_rasterize_train_fwd", "splat_rasterize_train_bwd")
+
+
+def scene_of(kind: str, dev):
+    """(scene, config, camera) of the 1M @1080p cells of chip_smoke.py."""
     from splat_tpu_torch.camera import Camera
     from splat_tpu_torch.config import RenderConfig
-    from splat_tpu_torch.ops.projection import project_gaussians
-    from splat_tpu_torch.render.binning import build_tile_bins
     from splat_tpu_torch.utils.fixtures import random_scene, surface_scene
 
     if kind == "surface":
@@ -205,11 +232,19 @@ def frame(kind: str, dev):
         scene = random_scene(1_000_000, seed=0, extent=3.0,
                              scale_range=(0.004, 0.03), device=dev)
         dup = 2.05
-    cfg = RenderConfig(max_dup_factor=dup)
     cam = Camera.create(h=1080, w=1920, position=(0.0, 0.0, 4.0), device=dev)
-    bins = build_tile_bins(project_gaussians(scene, cam, cfg), 1080, 1920,
+    return scene, RenderConfig(max_dup_factor=dup), cam
+
+
+def frame(kind: str, dev):
+    """Bins of the 1M @1080p frames of chip_smoke.py."""
+    from splat_tpu_torch.ops.projection import project_gaussians
+    from splat_tpu_torch.render.binning import build_tile_bins
+
+    scene, cfg, cam = scene_of(kind, dev)
+    bins = build_tile_bins(project_gaussians(scene, cam, cfg), cam.h, cam.w,
                            cfg)
-    return bins, cfg, 1080, 1920
+    return bins, cfg, cam.h, cam.w
 
 
 def walk_end(bins, cfg, cut):
@@ -253,6 +288,10 @@ def _events_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    # ~5 ms of a spinning kernel first: the host queues every launch behind
+    # it, so a kernel shorter than its wrapper's host time is still timed
+    # at the card's pace
+    torch.cuda._sleep(10_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -416,26 +455,23 @@ extern "C" int probe_set_times(void* p) {
 """
 
 
-def load_stamped_current() -> ctypes.CDLL:
-    """The current source with a stamp per block, bound as _build binds
-    the library, so the wrappers of render/diff.py can call it."""
+def load_stamped_current(name: str = "raster_train.cu",
+                         entries=TRAIN_ENTRIES) -> ctypes.CDLL:
+    """The current source ``name`` with a stamp per block, bound as _build
+    binds the library, so the port's wrappers can call it."""
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    text = (_build.CSRC / "raster_train.cu").read_text()
+    text = current_source(name)
     hook = "  if (!work_of(order, nheavy, num_tiles, S, &w)) return;\n"
-    if text.count(hook) != 2:
+    if text.count(hook) != len(entries):
         raise RuntimeError("work_of() call sites not found")
     text = text.replace(hook, hook + "  ProbeStamp probe_stamp_(w.tile, "
                         "w.group, w.split);\n")
     text = text.replace("struct Work {", _STAMP_HEAD + "struct Work {", 1)
-    src = PROBE_DIR / "current_stamped.cu"
+    src = PROBE_DIR / f"stamped_{name}"
     src.write_text(text)
     lib_path = src.with_suffix(".so")
     _nvcc(src, lib_path, verbose=False)
-    lib = ctypes.CDLL(str(lib_path))
-    for name in ("splat_rasterize_train_fwd", "splat_rasterize_train_bwd"):
-        fn = getattr(lib, name)
-        fn.argtypes = _build._SIGNATURES[name]
-        fn.restype = ctypes.c_int
+    lib = _bind(lib_path, entries)
     lib.probe_set_times.argtypes = [_P]
     lib.probe_set_times.restype = ctypes.c_int
     return lib
@@ -529,10 +565,12 @@ _VARIANTS = (
 )
 
 
-def load_variant(name: str, subs: dict) -> ctypes.CDLL:
-    """The current source with ``subs`` applied, bound as _build binds it."""
+def load_variant(name: str, subs: dict, source: str = "raster_train.cu",
+                 entries=TRAIN_ENTRIES) -> ctypes.CDLL:
+    """The current ``source`` with ``subs`` applied, bound as _build binds
+    it."""
     PROBE_DIR.mkdir(parents=True, exist_ok=True)
-    text = (_build.CSRC / "raster_train.cu").read_text()
+    text = current_source(source)
     for old, new in subs.items():
         if text.count(old) != 1:
             raise RuntimeError(f"variant {name}: {old!r} not found once")
@@ -542,22 +580,17 @@ def load_variant(name: str, subs: dict) -> ctypes.CDLL:
     log = _nvcc(src, src.with_suffix(".so"), verbose=True)
     print(f"[regs] {name}: " + "; ".join(
         r for r in _registers(log) if "ILi4E" in r), flush=True)
-    lib = ctypes.CDLL(str(src.with_suffix(".so")))
-    for fn_name in ("splat_rasterize_train_fwd", "splat_rasterize_train_bwd"):
-        fn = getattr(lib, fn_name)
-        fn.argtypes = _build._SIGNATURES[fn_name]
-        fn.restype = ctypes.c_int
-    return lib
+    return _bind(src.with_suffix(".so"), entries)
 
 
 def tune(thresholds) -> None:
-    from splat_tpu_torch.render import diff
+    from splat_tpu_torch.render import diff, plan
     dev = torch.device("cuda", 0)
     real = _build.library()
     libs = {"current": real}
     for name, subs in _VARIANTS:
         libs[name] = load_variant(name, subs)
-    default = diff.SPLIT_MIN_PAIRS
+    default = plan.SPLIT_MIN_PAIRS
     for kind in ("random", "surface"):
         bins, cfg, h, w = frame(kind, dev)
         c, lt, cut = diff.rasterize_train_fwd(bins, h, w, cfg)
@@ -567,7 +600,7 @@ def tune(thresholds) -> None:
 
         def timed(lib, thr):
             _build._lib = lib
-            diff.SPLIT_MIN_PAIRS = thr
+            plan.SPLIT_MIN_PAIRS = thr
             try:
                 k3 = _events_ms(lambda: diff.rasterize_train_fwd(
                     bins, h, w, cfg), 5)
@@ -575,7 +608,7 @@ def tune(thresholds) -> None:
                     bins, g_c, g_lt, lt, cut, h, w, cfg), 5)
             finally:
                 _build._lib = real
-                diff.SPLIT_MIN_PAIRS = default
+                plan.SPLIT_MIN_PAIRS = default
             return k3, k4
 
         runs = [(name, default) for name in libs] + [

@@ -16,7 +16,7 @@ from splat_tpu.render.binning import build_tile_bins as jax_bins
 from splat_tpu.render.binning import count_pairs as jax_count_pairs
 from splat_tpu_torch.device import resolve_device
 from splat_tpu_torch.ops.projection import project_gaussians
-from splat_tpu_torch.render import binning
+from splat_tpu_torch.render import binning, emulate
 from splat_tpu_torch.render.expand import (expand_pair_keys,
                                            expand_pair_keys_plain)
 from splat_tpu_torch.render.diff import (rasterize_train_bwd,
@@ -182,3 +182,57 @@ def test_radius_bits_saturate_and_survive_nan():
         torch.tensor([10.0, 40.0, 50.0, 60.0, float("nan")]),
         torch.tensor([10.0] * 4 + [float("nan")]), bits, 32, 32, 4, 3)
     assert sw.tolist()[2:4] == [4, 4] and counts[4] == 0
+
+
+# ---- K1's design: its Python model (render/emulate.py), which the tests
+# ---- on the card hold the kernel against ---------------------------------
+
+
+def _spans(n, gaps, seed=4):
+    """Random tile spans of n gaussians; those in ``gaps`` cover no tile."""
+    rng = np.random.default_rng(seed)
+    sw = rng.integers(1, 4, n).astype(np.int32)
+    hgt = rng.integers(1, 3, n).astype(np.int32)
+    seen = rng.random(n) < 0.6
+    for a, b in gaps:
+        seen[a:b] = False
+    seen[-5:] = False
+    counts = np.where(seen, sw * hgt, 0).astype(np.int64)
+    first = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+    tx0 = rng.integers(0, 5, n).astype(np.int32)
+    ty0 = rng.integers(0, 3, n).astype(np.int32)
+    dbits = rng.uniform(0.5, 9.0, n).astype(np.float32).view(np.int32)
+    return first, tx0, ty0, sw, dbits, int(counts.sum())
+
+
+# runs of gaussians with no tile, longer than the staging buffer: 64 entries
+# in the small case; the kernel's own sizes (read from csrc/expand.cu) in
+# the other
+_BLOCK_CASES = {
+    "small": (700, [(40, 130), (300, 420)],
+              dict(slots_per_block=32, stage_cap=64, ways=4)),
+    "kernel_sizes": (16000, [(500, 3000), (7000, 12000)], {}),
+}
+
+
+@pytest.mark.parametrize("sizes", list(_BLOCK_CASES))
+@pytest.mark.parametrize("cap", ["room", "exact", "overflow"])
+def test_expand_block_ranges_match_plain(cap, sizes):
+    n, gaps, kw = _BLOCK_CASES[sizes]
+    first, tx0, ty0, sw, dbits, total = _spans(n, gaps)
+    ntx, nt = 8, 40
+    k_cap = {"room": total + 37, "exact": total, "overflow": total // 2}[cap]
+    want_k, want_o = expand_pair_keys_plain(
+        *(torch.from_numpy(a) for a in (first, tx0, ty0, sw, dbits)),
+        torch.tensor([total]), k_cap=k_cap, ntx=ntx, num_tiles=nt)
+    keys, owners, staged, direct = emulate.expand_by_blocks(
+        first, tx0, ty0, sw, dbits, total, k_cap, ntx, nt, **kw)
+    assert keys.tolist() == want_k.tolist()
+    assert owners.tolist() == want_o.tolist()
+    assert staged > 0 and direct > 0          # both paths ran
+    # the search the kernel's halves run: 128 probes a round
+    ways = emulate.define("expand.cu", "THREADS") // 2
+    for k in (0, 1, total // 3, total - 1):
+        g, rounds = emulate.multiway_upper_bound(first, k, ways)
+        assert g == int(np.searchsorted(first, k, side="right"))
+        assert rounds <= 2                    # n <= 128^2

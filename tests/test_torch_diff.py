@@ -19,7 +19,7 @@ from splat_tpu.render import diff as jax_diff
 from splat_tpu.render.binning import build_tile_bins as jax_bins
 import splat_tpu_torch as stt
 from splat_tpu_torch.ops.projection import project_gaussians
-from splat_tpu_torch.render import binning, diff
+from splat_tpu_torch.render import binning, diff, plan
 from splat_tpu_torch.render.kernels import THREADS
 from test_torch_raster import _port_bins
 
@@ -393,9 +393,14 @@ def test_split_plan_covers_each_pixel_once(ppt):
     order, nheavy = diff._tile_plan(walk, split, slots=1000)
     assert order.dtype == nheavy.dtype == torch.int32
     assert sorted(order.tolist()) == list(range(walk.numel()))
-    assert bool((walk[order.long()].diff() <= 0).all())  # longest first
     heavy = walk > diff.SPLIT_MIN_PAIRS
     assert int(nheavy) == (int(heavy.sum()) if split > 1 else 0)
+    # heavy tiles first, each group longest first to within a bucket
+    sorted_walk = walk[order.long()]
+    assert bool((heavy[order.long()][:int(nheavy)]).all())
+    for part in (sorted_walk[:int(nheavy)], sorted_walk[int(nheavy):]):
+        assert bool((part.diff() <= int(walk.max())
+                     // (plan.PLAN_BUCKETS - 1) + 1).all())
     slots = THREADS * ppt
     covered = {t: [] for t in range(walk.numel())}
     for tile, group, groups in diff._block_work(order, nheavy, split):

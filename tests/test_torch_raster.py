@@ -14,6 +14,7 @@ from splat_tpu.render.binning import _R15_MAX
 from splat_tpu.render.binning import build_tile_bins as jax_bins
 from splat_tpu.render.kernels import rasterize_tiles as jax_raster
 from splat_tpu_torch import RenderConfig
+from splat_tpu_torch.render import emulate
 from splat_tpu_torch.render.binning import FEATURE_ROWS, TileBins
 from splat_tpu_torch.render.kernels import rasterize_tiles_plain
 from splat_tpu_torch.utils.image import psnr
@@ -90,3 +91,118 @@ def test_whole_tile_exit_is_batch_granular(chunk, want):
     img = rasterize_tiles_plain(bins, 20, 24, RenderConfig(chunk=chunk))
     assert img.shape == (20, 24, 3)
     np.testing.assert_allclose(img.numpy(), want, atol=1e-6)
+
+
+# ---- the kernel's design: its Python models (render/emulate.py), which
+# ---- the tests on the card hold the kernels against ---------------------
+
+
+@pytest.mark.parametrize("alpha_channel", [False, True], ids=["rgb", "rgba"])
+@pytest.mark.parametrize("chunk", [64, 128])
+def test_split_tile_composite_equals_unsplit(chunk, alpha_channel):
+    bins, h, w, cfg = emulate.saturating_frame(chunk, alpha_channel)
+    want, walked = rasterize_tiles_plain(bins, h, w, cfg, return_walked=True)
+    pairs = (bins.tile_end - bins.tile_start).long()
+    assert bool((walked < pairs).all())           # exits before the end
+    got, got_walked, stopped = emulate.split_composite(bins, h, w, cfg)
+    assert torch.equal(got_walked, walked)
+    # the pixel groups saturate at different batches: the votes matter
+    assert all(len(set(s)) > 1 and min(s) >= 0 for s in stopped)
+    # the same f32 operations per pixel, in the same order
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_strip_skip_drops_only_pairs_no_pixel_keeps(seed):
+    rng = np.random.default_rng(seed)
+    n = 4000
+    f32 = np.float32
+    # strips: one tile row segment, a few rows, or a whole 32x32 tile
+    xa = rng.integers(0, 200, n)
+    ya = rng.integers(0, 200, n)
+    xb = xa + rng.choice([0, 7, 15, 31], n)
+    yb = ya + rng.choice([0, 0, 3, 7, 31], n)
+    cx = (xa + rng.uniform(-40, 72, n)).astype(f32)
+    cy = (ya + rng.uniform(-40, 72, n)).astype(f32)
+    # centres on pixel centres and on the boundaries between pixels
+    snap = rng.integers(0, 4, n)
+    cx = np.where(snap == 1, np.round(cx), np.where(
+        snap == 2, np.floor(cx) + f32(0.5), cx)).astype(f32)
+    cy = np.where(snap == 1, np.round(cy), np.where(
+        snap == 2, np.floor(cy) + f32(0.5), cy)).astype(f32)
+    r = (rng.integers(0, 400, (2, n)) * 0.125).astype(f32)  # 1/8-px radii
+    rx2, ry2 = r[0] * r[0], r[1] * r[1]
+    rx2[rng.random(n) < 0.1] = np.inf                      # saturated
+    ry2[rng.random(n) < 0.1] = np.inf
+    nan = rng.random(n) < 0.05
+    cx[nan] = np.nan
+    cy[nan & (rng.random(n) < 0.5)] = np.nan
+    with np.errstate(invalid="ignore"):
+        reach = emulate.strip_reaches(xa.astype(f32), xb.astype(f32),
+                                      ya.astype(f32), yb.astype(f32), cx, cy,
+                                      rx2, ry2)
+        kept_any = np.zeros(n, bool)
+        for i in range(n):
+            px = np.arange(xa[i], xb[i] + 1, dtype=f32)
+            py = np.arange(ya[i], yb[i] + 1, dtype=f32)
+            dx, dy = px - cx[i], cy[i] - py        # the plain version's test
+            kept_any[i] = ((dx * dx <= rx2[i]).any()
+                           and (dy * dy <= ry2[i]).any())
+    # never skipped where some pixel passes the box test; and on a
+    # rectangle the test is exact, so it skips whenever it may
+    assert not (kept_any & ~reach).any()
+    assert not (reach & ~kept_any).any()
+    assert not reach[nan].any()
+    assert 0.05 < reach.mean() < 0.95
+
+
+@pytest.mark.parametrize("ppt", [1, 2, 4, 8])
+def test_raster_plan_covers_each_pixel_once(ppt):
+    """K2 plans on the pairs a tile holds (an upper bound of its walk); the
+    blocks of its launch take every pixel slot of every tile once."""
+    from splat_tpu_torch.render import plan
+
+    rng = np.random.default_rng(ppt)
+    start = torch.tensor(np.cumsum(rng.integers(0, 3 * plan.SPLIT_MIN_PAIRS,
+                                                61)), dtype=torch.int32)
+    pairs = (start[1:] - start[:-1]).long()        # tile_end - tile_start
+    split = plan._split(ppt)
+    order, nheavy = plan._tile_plan(pairs, split, slots=40)
+    key = plan._plan_keys(pairs, split, slots=40)
+    cap = max(plan.SPLIT_MIN_PAIRS, int(pairs.sum()) // 40)
+    heavy = pairs > cap if split > 1 else torch.zeros_like(pairs, dtype=bool)
+    assert int(nheavy) == int(heavy.sum())
+    assert (ppt == 1) == (int(nheavy) == 0)
+    assert sorted(order.tolist()) == list(range(60))
+    assert set(order[:int(nheavy)].tolist()) == set(
+        torch.nonzero(heavy).flatten().tolist())
+    assert bool((key[order.long()][1:] >= key[order.long()][:-1]).all())
+    # longest first to within a bucket of max / PLAN_BUCKETS pairs
+    light = pairs[order.long()][int(nheavy):]
+    assert bool((light[1:] <= light[:-1] + int(pairs.max())
+                 // (plan.PLAN_BUCKETS - 1) + 1).all())
+    seen = torch.zeros((60, ppt * plan.THREADS), dtype=torch.int32)
+    for tile, group, groups in plan._block_work(order, nheavy, split):
+        per = ppt * plan.THREADS // groups
+        seen[tile, group * per:(group + 1) * per] += 1
+        assert (groups > 1) == bool(heavy[tile])
+    assert bool((seen == 1).all())
+
+
+def test_plan_names_still_import_from_diff():
+    from splat_tpu_torch.render import diff, kernels, plan
+
+    for name in ("_tile_plan", "_split", "_slots", "_block_work",
+                 "SPLIT_MIN_PAIRS", "SPLIT_BLOCKS", "BLOCKS_PER_SM"):
+        assert getattr(diff, name) is getattr(plan, name), name
+    assert kernels.THREADS == plan.THREADS == diff.THREADS == 256
+    # a balanced frame splits nothing; one tile far above the rest is split
+    walk = torch.full((2040,), 990)
+    assert int(plan._tile_plan(walk, 4, slots=264)[1]) == 0
+    walk[7] = 43502
+    order, nheavy = plan._tile_plan(walk, 4, slots=264)
+    assert int(nheavy) == 1 and int(order[0]) == 7
+    # the Python rule and the CUDA sources agree on their sizes
+    assert plan.PLAN_BUCKETS == emulate.define("raster_common.cuh",
+                                               "PLAN_BUCKETS")
+    assert plan.THREADS == emulate.define("raster_common.cuh", "THREADS")
