@@ -31,7 +31,24 @@ Phases (any failure raises and exits non-zero):
      ``render_dense``) must more than halve its loss with every loss
      finite; then timed tiled ``fit`` steps on 1M surface gaussians
      @1920x1080 with 2 orbit views and overflow 0;
-  7. K3 and K4 must have launched during phase 6.
+  7. K3 and K4 must have launched during phase 6;
+  8. the command line and the viewer, with every launch counter at 0
+     before the inference commands and again before ``fit``: the 1M
+     surface scene saved as a PLY and loaded by the native loader (its
+     arrays equal the NumPy reader's: positions, rotations and SH exactly,
+     the exp-activated fields to rtol 1e-6), by the NumPy reader and from
+     the warm npz cache, each timed; ``info``; ``render`` @1920x1080 with
+     ``--dup-factor auto --stats`` (its PNG within 1 of ``stt.render`` in
+     uint8, overflow 0); ``orbit --path`` over SE(3) views of the fitted
+     20k scene @400x300 (each frame >= 45 dB against ``render_dense``); a
+     10-frame ``orbit`` and a 30-frame ``bench`` of 1M gaussians @1080p
+     with no overflow; the viewer from ``make_server`` serving the 1M
+     surface scene @1080p (raw, PNG, depth, 0.5x and 2.0x frames with
+     overflow 0, the first raw frame within 1 of the render, the median
+     pose-to-bytes time of 10 raw requests); ``fit --targets --cameras``
+     over those SE(3) views, 30 tiled steps, loss more than halved.  K1
+     and K2 must launch on the inference commands, K3 and K4 on ``fit``.
+     Prints a JSON line of the phase's times.
 The second-to-last line is a JSON object describing each kernel, with its
 bound (the least time the card could take for its work on these inputs:
 bytes over the memory rate, FP32 operations over the FP32 rate, or
@@ -70,6 +87,8 @@ K4_REL_TOL = 1e-4
 K4_MIN_COS = 0.99999
 FIT_STEPS = 30
 BIG_FIT_STEPS = 3
+ORBIT_FRAMES = 10          # phase 8: the CLI orbit of the 1M surface PLY
+VIEWER_REQUESTS = 10       # phase 8: timed raw requests at 1080p
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # HBM bytes per second, and FP32 operations per second outside the tensor
 # cores.
@@ -487,6 +506,320 @@ def training_path(device) -> None:
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+def run_cli(argv):
+    """``python -m splat_tpu_torch`` in this process; echoes its output
+    and returns (stdout, stderr).  Any failure raises."""
+    import contextlib
+    import io
+    from splat_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    for line in out.getvalue().splitlines():
+        print(f"[cli {argv[0]}] {line}")
+    require(rc == 0, f"cli {argv[0]} returned {rc}")
+    return out.getvalue(), err.getvalue()
+
+
+def rotmat_to_qvec(r):
+    """Scalar-first unit quaternion of a 3x3 rotation (Shepperd)."""
+    import numpy as np
+    r = np.asarray(r, np.float64)
+    t = np.trace(r)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        q = [0.25 * s, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+             (r[1, 0] - r[0, 1]) / s]
+    elif r[0, 0] > r[1, 1] and r[0, 0] > r[2, 2]:
+        s = np.sqrt(1.0 + r[0, 0] - r[1, 1] - r[2, 2]) * 2
+        q = [(r[2, 1] - r[1, 2]) / s, 0.25 * s, (r[0, 1] + r[1, 0]) / s,
+             (r[0, 2] + r[2, 0]) / s]
+    elif r[1, 1] > r[2, 2]:
+        s = np.sqrt(1.0 + r[1, 1] - r[0, 0] - r[2, 2]) * 2
+        q = [(r[0, 2] - r[2, 0]) / s, (r[0, 1] + r[1, 0]) / s, 0.25 * s,
+             (r[1, 2] + r[2, 1]) / s]
+    else:
+        s = np.sqrt(1.0 + r[2, 2] - r[0, 0] - r[1, 1]) * 2
+        q = [(r[1, 0] - r[0, 1]) / s, (r[0, 2] + r[2, 0]) / s,
+             (r[1, 2] + r[2, 1]) / s, 0.25 * s]
+    return [float(x) for x in q]
+
+
+def se3_camera_file(path: str, h: int, w: int) -> None:
+    """A camera file of four rolled SE(3) views around the fitted scene's
+    pose, view_matrix and COLMAP qvec/tvec forms mixed, fx != fy and an
+    off-centre principal point."""
+    import numpy as np
+    import splat_tpu_torch as stt
+    views = []
+    for i, (pos, roll) in enumerate((((0.0, -1.0, 3.5), 0.25),
+                                     ((0.6, -1.1, 3.3), -0.2),
+                                     ((-0.5, -0.8, 3.6), 0.1),
+                                     ((0.2, -1.4, 3.2), -0.05))):
+        v = stt.Camera.create(h=h, w=w, position=pos, device="cpu")
+        v = v.view_matrix().double().numpy()
+        c, s = math.cos(roll), math.sin(roll)
+        r = np.eye(4)
+        r[:2, :2] = [[c, -s], [s, c]]
+        v = r @ v
+        if i % 2:       # COLMAP: y down, z forward
+            flip = np.diag([1.0, -1.0, -1.0])
+            views.append({"qvec": rotmat_to_qvec(flip @ v[:3, :3]),
+                          "tvec": (flip @ v[:3, 3]).tolist()})
+        else:
+            views.append({"view_matrix": v.tolist()})
+    focal = h / 2.0        # fovy 90 degrees
+    with open(path, "w") as f:
+        json.dump({"h": h, "w": w, "fx": focal * 1.15, "fy": focal,
+                   "cx": w * 0.47, "cy": h * 0.53, "views": views}, f)
+
+
+def cli_and_viewer(device, kernels) -> dict:
+    """Phase 8: the command line and the viewer on the card, in process.
+    Returns each kernel's launches on the inference commands (render,
+    orbit, bench, the viewer) and on ``fit``."""
+    import statistics
+    import tempfile
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    import splat_tpu_torch as stt
+    from splat_tpu_torch import cli
+    from splat_tpu_torch.io.cache import load_scene_cached
+    from splat_tpu_torch.native.loader import load_ply_native
+    from splat_tpu_torch.render.tiled import render_tiled
+    from splat_tpu_torch.utils.image import read_png, write_png
+    from splat_tpu_torch.viewer.server import make_server
+
+    expand, raster, fwd, bwd = kernels
+    dev = ["--device", "cuda"]
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        # ---- load: native against NumPy, then the npz cache
+        ply = os.path.join(tmp, "surface_1m.ply")
+        scene, _ = bench_scene("surface", N_BIG, device)
+        stt.save_ply(ply, scene)
+        del scene
+        mb = os.path.getsize(ply) / 1e6
+        t0 = time.perf_counter()
+        nat = load_ply_native(ply, center=True, device=device)
+        torch.cuda.synchronize()
+        t_native = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = stt.load_ply(ply, center=True, native=False, device=device)
+        torch.cuda.synchronize()
+        t_numpy = time.perf_counter() - t0
+        a, b = nat.to_numpy(), ref.to_numpy()
+        for k in ("means", "quats", "sh"):
+            require(np.array_equal(a[k], b[k]), f"native {k} differs from "
+                                                f"the NumPy reader")
+        # glibc's expf and NumPy's exp round up to 2 ulp apart (tests/
+        # test_torch_io.py): the exp-activated fields at rtol 1e-6
+        for k in ("scales", "opacities"):
+            rel = float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k])))
+            require(rel <= 1e-6, f"native {k}: rel error {rel} > 1e-6")
+        del ref, b
+        load_scene_cached(ply, device=device)       # writes the cache
+        t0 = time.perf_counter()
+        scene = load_scene_cached(ply, device=device)
+        torch.cuda.synchronize()
+        t_cache = time.perf_counter() - t0
+        c = scene.to_numpy()
+        require(all(np.array_equal(a[k], c[k]) for k in a),
+                "warm cache differs from the native load")
+        del nat, a, c
+        print(f"[load] {N_BIG} surface gaussians, {mb:.1f} MB PLY: native "
+              f"{t_native * 1e3:.1f} ms, NumPy {t_numpy * 1e3:.1f} ms "
+              f"({t_numpy / t_native:.1f}x), warm npz cache "
+              f"{t_cache * 1e3:.1f} ms (to the card)")
+
+        out, _ = run_cli(["info", ply, *dev])
+        require(json.loads(out)["num_gaussians"] == N_BIG, "info: count")
+
+        # ---- render: the CLI's PNG against stt.render, same inputs
+        for fn in kernels:
+            fn.launches = 0
+        png = os.path.join(tmp, "render.png")
+        _, err = run_cli(["render", ply, "--size", f"{W}x{H}", "--pos",
+                          "0,0,4", "--dup-factor", "auto", "--stats",
+                          "--out", png, *dev])
+        stats = json.loads(err.strip().splitlines()[-1])
+        require(stats["overflow"] == 0, f"render --stats: {stats}")
+        cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0),
+                                device=device)
+        dup = stt.pair_stats(scene, cam)["suggested_dup_factor"]
+        cfg = stt.RenderConfig(max_dup_factor=dup)
+        counts = [fn.launches for fn in kernels]
+        want = stt.render(scene, cam, cfg, as_uint8=True).cpu().numpy()
+        for fn, n in zip(kernels, counts):   # the reference is not the path
+            fn.launches = n
+        diff = int(np.abs(read_png(png).astype(int) - want).max())
+        require(diff <= 1, f"render PNG vs stt.render: max abs {diff} > 1")
+        print(f"[cli render] PNG vs stt.render: max abs {diff} (u8); "
+              f"--stats {stats}")
+
+        # ---- orbit --path: SE(3) views of the fitted scene
+        fitted = os.path.join(tmp, "fitted_20k.ply")
+        with open(FITTED_PLY, "rb") as fsrc, open(fitted, "wb") as fdst:
+            fdst.write(fsrc.read())
+        cams_json = os.path.join(tmp, "cams.json")
+        se3_camera_file(cams_json, 300, 400)
+        frames = os.path.join(tmp, "se3")
+        _, err = run_cli(["orbit", fitted, "--no-center", "--path",
+                          cams_json, "--out-dir", frames, *dev])
+        require("WARNING" not in err, f"orbit --path: {err}")
+        fscene = load_scene_cached(fitted, center=False, device=device)
+        se3, _, _ = cli._load_camera_path(cams_json, "800x600", 90.0,
+                                          device=device)
+        ps = []
+        for i, c in enumerate(se3):
+            got = read_png(os.path.join(frames, f"frame_{i:04d}.png"))
+            ref = stt.render_dense(fscene, c, chunk=64)
+            ps.append(stt.psnr(got.astype(np.float32) / 255.0, ref))
+        require(min(ps) >= FITTED_MIN_PSNR,
+                f"orbit --path vs render_dense: {ps} dB")
+        print(f"[cli orbit --path] {len(se3)} SE(3) views @400x300 vs "
+              f"render_dense: {', '.join(f'{p:.2f}' for p in ps)} dB")
+
+        # ---- orbit of the 1M surface PLY and bench, at 1080p
+        out, err = run_cli(["orbit", ply, "--size", f"{W}x{H}", "--pos",
+                            "0,0,4", "--frames", str(ORBIT_FRAMES),
+                            "--yaw-sweep", "10", "--png-level", "0",
+                            "--out-dir", os.path.join(tmp, "orbit"), *dev])
+        require("WARNING" not in err, f"orbit: {err}")
+        orbit_ms = float(out.split(" ms/frame")[0].split()[-1])
+        out, err = run_cli(["bench", "--n", str(N_BIG), "--size",
+                            f"{W}x{H}", "--frames", "30", *dev])
+        require("WARNING" not in err and " overflow=0 " in out,
+                f"bench: overflow ({err})")
+        bench_ms = float(out.split(" ms/frame")[0].split()[-1])
+
+        # ---- the viewer, serving the 1M surface scene at 1080p
+        srv = make_server(scene, cam, cfg, port=0)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+        def get(q):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(base + q, timeout=300) as r:
+                body, hdr = r.read(), dict(r.headers)
+            return body, hdr, (time.perf_counter() - t0) * 1e3
+
+        try:
+            page, _, _ = get("/")
+            require(b"splat_tpu viewer" in page, "viewer: no page")
+            checks = [("/frame.raw?yaw=0", W, H),
+                      ("/frame.raw?yaw=0.3", W, H),
+                      ("/frame.raw?yaw=-0.3", W, H),
+                      ("/frame.raw?mode=depth", W, H),
+                      ("/frame.png?yaw=0.1", W, H),
+                      ("/frame.raw?scale=0.5", W // 2, H // 2),
+                      ("/frame.raw?scale=2.0", 2 * W, 2 * H)]
+            for q, w, h in checks:
+                body, hdr, _ = get(q)
+                require(hdr["X-Splat-Overflow"] == "0", f"viewer {q}: "
+                        f"overflow {hdr['X-Splat-Overflow']}")
+                require((int(hdr["X-Splat-W"]), int(hdr["X-Splat-H"]))
+                        == (w, h), f"viewer {q}: size")
+                if q.startswith("/frame.raw"):
+                    require(len(body) == w * h * 4, f"viewer {q}: bytes")
+                else:
+                    require(body[:8] == b"\x89PNG\r\n\x1a\n", "viewer: png")
+                if q == "/frame.raw?yaw=0":
+                    frame = np.frombuffer(body, np.uint8).reshape(h, w, 4)
+                    diff = int(np.abs(frame[..., :3].astype(int)
+                                      - want).max())
+                    require(diff <= 1, f"viewer frame vs render: {diff}")
+            times = [get(f"/frame.raw?yaw={0.02 * i}")[2]
+                     for i in range(VIEWER_REQUESTS)]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join(timeout=60)
+        require(not th.is_alive(), "viewer thread did not stop")
+        viewer_ms = statistics.median(times)
+        inference = {"K1": expand.launches, "K2": raster.launches,
+                     "K3": fwd.launches, "K4": bwd.launches}
+        # the same poses without the server: what a request spends in the
+        # render, the overflow read and the copy to the host (not counted)
+        frame_ms = []
+        for i in range(VIEWER_REQUESTS):
+            c = cam.with_pose(yaw=0.02 * i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                img, st = render_tiled(scene, c, cfg, return_stats=True)
+                int(st["overflow"])
+                (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(
+                    torch.uint8).cpu().numpy()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        for fn, key in zip(kernels, ("K1", "K2", "K3", "K4")):
+            fn.launches = inference[key]
+        print(f"[viewer] {N_BIG} surface @{W}x{H}: raw/png/depth/0.5x/2.0x "
+              f"served with overflow 0, first raw frame = render (max abs "
+              f"{diff}); pose->bytes median {viewer_ms:.1f} ms over "
+              f"{VIEWER_REQUESTS} raw requests (min {min(times):.1f}, max "
+              f"{max(times):.1f}); the same poses' render + overflow read + "
+              f"copy to host alone: median "
+              f"{statistics.median(frame_ms):.1f} ms")
+        del scene
+
+        # ---- fit --targets/--cameras with the SE(3) views
+        tdir = os.path.join(tmp, "targets")
+        os.makedirs(tdir)
+        for i, c in enumerate(se3):
+            write_png(os.path.join(tdir, f"view_{i}.png"),
+                      stt.render_dense(fscene, c, chunk=64))
+        rng = np.random.default_rng(1)
+        n = fscene.num_gaussians
+        jitter = torch.tensor(rng.normal(0.0, 0.02, (n, 3))
+                              .astype(np.float32), device=device)
+        start = dataclasses.replace(
+            fscene, means=fscene.means + jitter, sh=fscene.sh * 0.6,
+            opacities=torch.clamp(fscene.opacities * 0.8, 0.01, 0.99))
+        init = os.path.join(tmp, "init.ply")
+        stt.save_ply(init, start)
+        for fn in kernels:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = run_cli(["fit", "--targets", tdir, "--cameras", cams_json,
+                          "--init", init, "--steps", str(FIT_STEPS),
+                          "--fit-method", "tiled", "--out",
+                          os.path.join(tmp, "fit.ply"), *dev])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        line = next(s for s in out.splitlines() if s.startswith("fit in"))
+        first, last = (float(x) for x in
+                       line.split("loss ")[1].split(" (")[0].split(" -> "))
+        require(last < first / 2, f"fit: loss {first} -> {last}, not "
+                                  f"halved")
+        training = {"K1": expand.launches, "K2": raster.launches,
+                    "K3": fwd.launches, "K4": bwd.launches}
+        print(f"[cli fit] {len(se3)} SE(3) views @400x300, {FIT_STEPS} "
+              f"tiled steps from a perturbed fitted_20k: loss {first:.5f} "
+              f"-> {last:.5f}; {fit_s * 1e3 / FIT_STEPS:.2f} ms/step "
+              f"(whole command / steps: load, capacity audit, final PSNR "
+              f"renders and PLY write included)")
+    require(inference["K1"] > 0 and inference["K2"] > 0,
+            f"K1/K2 did not launch on render/orbit/bench/serve: {inference}")
+    require(training["K3"] > 0 and training["K4"] > 0,
+            f"K3/K4 did not launch on fit: {training}")
+    print(f"[cli] launches on render/orbit/bench/serve: {inference}; on "
+          f"fit: {training}")
+    print(json.dumps({"cli": {
+        "native_load_ms": t_native * 1e3, "numpy_load_ms": t_numpy * 1e3,
+        "cache_load_ms": t_cache * 1e3, "orbit_ms_per_frame": orbit_ms,
+        "bench_ms_per_frame": bench_ms, "viewer_pose_to_bytes_ms": viewer_ms,
+        "viewer_render_and_copy_ms": statistics.median(frame_ms),
+        "fit_ms_per_step": fit_s * 1e3 / FIT_STEPS}}))
+    return {"inference": inference, "fit": training}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -564,6 +897,10 @@ def main() -> int:
     for k in (k1, k2, k3, k4):
         require(k["launches"] > 0, f"{k['name']} never launched on its "
                                    f"path")
+    cli_counts = cli_and_viewer(device, kernels)
+    for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
+        k["cli_launches"] = cli_counts["fit" if key in ("K3", "K4")
+                                       else "inference"][key]
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

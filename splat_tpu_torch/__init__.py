@@ -20,12 +20,17 @@ Public API::
     img    = stt.render(scene, camera)              # float32 (H, W, 3)
     res    = stt.fit(scene, stt.orbit_trajectory(camera, 4, 0.8), targets,
                      method="tiled")                # targets (4, H, W, 3)
+
+The command line is ``python -m splat_tpu_torch
+<render|orbit|serve|trim|info|bench|fit|psnr>`` (:mod:`splat_tpu_torch.cli`).
 """
 
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.scene import GaussianScene
-from splat_tpu_torch.camera import Camera, orbit_trajectory
-from splat_tpu_torch.io.ply import PlyError, load_ply, save_ply
+from splat_tpu_torch.camera import (Camera, SE3Camera, orbit_trajectory,
+                                    stack_cameras)
+from splat_tpu_torch.io.cache import load_scene_cached
+from splat_tpu_torch.io.ply import PlyError, load_ply, save_ply, trim_ply
 from splat_tpu_torch.render.api import (auto_config, pair_stats, render,
                                         render_fn)
 from splat_tpu_torch.render.dense import render_dense
@@ -42,10 +47,14 @@ __all__ = [
     "RenderConfig",
     "GaussianScene",
     "Camera",
+    "SE3Camera",
     "orbit_trajectory",
+    "stack_cameras",
     "PlyError",
     "load_ply",
+    "load_scene_cached",
     "save_ply",
+    "trim_ply",
     "auto_config",
     "pair_stats",
     "render",

@@ -175,9 +175,40 @@ def arrays_to_scene(fields: dict[str, np.ndarray], *, center: bool = True,
         device=device)
 
 
+def native_enabled(native: bool | None, f_rest_layout: str) -> bool:
+    """Whether :func:`load_ply` takes the C++ loader: on unless asked off
+    (``native=False``, or ``SPLAT_TPU_NO_NATIVE`` set non-empty, the switch
+    ``splat_tpu`` reads too), and never for ``f_rest_layout="raw"``, since
+    the C++ loader hard-codes the INRIA transpose."""
+    if f_rest_layout != "inria":
+        return False
+    if native is None:
+        return not os.environ.get("SPLAT_TPU_NO_NATIVE")
+    return native
+
+
 def load_ply(path: str | os.PathLike, *, center: bool = True,
-             f_rest_layout: str = "inria", device=None) -> GaussianScene:
-    """Load a pretrained 3DGS .ply into an activated scene on ``device``."""
+             native: bool | None = None, f_rest_layout: str = "inria",
+             device=None) -> GaussianScene:
+    """Load a pretrained 3DGS .ply into an activated scene on ``device``.
+
+    native: read through the multithreaded C++ loader
+      (:mod:`splat_tpu_torch.native`, built with g++ at first use) where
+      the file has the standard schema (binary little-endian, all float32);
+      other files take the NumPy reader.  None = on unless an environment
+      variable turns it off (see :func:`native_enabled`).  A failed build
+      raises.
+    f_rest_layout: "inria" transposes the file's channel-major f_rest block
+      to coefficient-major; "raw" copies it verbatim (the Rust loader's
+      quirk, PARITY.md).
+    """
+    if native_enabled(native, f_rest_layout):
+        from splat_tpu_torch.native.loader import (NativeUnsupported,
+                                                   load_ply_native)
+        try:
+            return load_ply_native(path, center=center, device=device)
+        except NativeUnsupported:
+            pass          # not the standard schema: the NumPy reader
     return arrays_to_scene(read_ply_arrays(path), center=center,
                            f_rest_layout=f_rest_layout, device=device)
 
@@ -215,3 +246,15 @@ def save_ply(path: str | os.PathLike, scene: GaussianScene) -> None:
     with open(path, "wb") as f:
         f.write(("\n".join(header) + "\n").encode("ascii"))
         f.write(rec.tobytes())
+
+
+def trim_ply(src: str | os.PathLike, dst: str | os.PathLike,
+             count: int = 3) -> int:
+    """Copy the first ``count`` splats of a PLY into a small fixture file
+    (the reference's ``trim`` tool).  Returns the number written."""
+    fields = read_ply_arrays(src)
+    n = min(count, next(iter(fields.values())).shape[0])
+    scene = arrays_to_scene({k: v[:n] for k, v in fields.items()},
+                            center=False, device="cpu")
+    save_ply(dst, scene)
+    return n

@@ -35,3 +35,20 @@ def compute_cov6_cols(q, s):
     yz = m10 * m20 + m11 * m21 + m12 * m22
     zz = m20 * m20 + m21 * m21 + m22 * m22
     return xx, xy, xz, yy, yz, zz
+
+
+def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
+    """(N, 4) scalar-first quaternions -> (N, 3, 3) rotation matrices,
+    normalising first."""
+    q = quats / torch.clamp(torch.linalg.vector_norm(quats, dim=-1,
+                                                     keepdim=True), min=1e-12)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    rows = [
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], dim=-1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], dim=-1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], dim=-1),
+    ]
+    return torch.stack(rows, dim=-2)

@@ -1,4 +1,5 @@
-"""Image utilities: PSNR, PNG writing and supersampling's box filter."""
+"""Image utilities: PSNR, PNG writing and reading, and supersampling's box
+filter."""
 
 from __future__ import annotations
 
@@ -46,6 +47,65 @@ def write_png(path: str, img, *, level: int = 6) -> None:
     """Write an image as PNG (see :func:`encode_png`)."""
     with open(path, "wb") as f:
         f.write(encode_png(img, level=level))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read an 8-bit RGB or RGBA PNG (filter types 0-4) as (H, W, 3|4)
+    uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos = 8
+    idat = b""
+    w = h = bitdepth = coltype = None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            w, h, bitdepth, coltype = struct.unpack(">IIBB", payload[:10])
+        elif tag == b"IDAT":
+            idat += payload
+        elif tag == b"IEND":
+            break
+    if bitdepth != 8 or coltype not in (2, 6):
+        raise ValueError(f"unsupported PNG (depth={bitdepth}, color={coltype})")
+    nch = 3 if coltype == 2 else 4
+    raw = zlib.decompress(idat)
+    stride = w * nch
+    out = np.zeros((h, stride), np.uint8)
+    prev = np.zeros(stride, np.int32)
+    off = 0
+    for y in range(h):
+        ftype = raw[off]
+        row = np.frombuffer(raw[off + 1:off + 1 + stride],
+                            np.uint8).astype(np.int32)
+        off += 1 + stride
+        if ftype == 0:
+            cur = row
+        elif ftype == 2:  # up
+            cur = (row + prev) & 0xFF
+        else:  # sub / average / paeth reconstruct left to right
+            cur = np.zeros(stride, np.int32)
+            for i in range(stride):
+                a = cur[i - nch] if i >= nch else 0
+                b = prev[i]
+                c = prev[i - nch] if i >= nch else 0
+                if ftype == 1:
+                    pred = a
+                elif ftype == 3:
+                    pred = (a + b) // 2
+                else:  # paeth
+                    p = a + b - c
+                    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+                    pred = a if (pa <= pb and pa <= pc) else (
+                        b if pb <= pc else c)
+                cur[i] = (row[i] + pred) & 0xFF
+        out[y] = cur.astype(np.uint8)
+        prev = cur
+    return out.reshape(h, w, nch)
 
 
 def psnr(a, b, data_range: float = 1.0) -> float:

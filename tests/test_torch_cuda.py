@@ -359,3 +359,49 @@ def test_tiled_fit_on_card(dev):
     assert rasterize_train_fwd.launches == f0 + 4     # 2 steps x 2 views
     assert rasterize_train_bwd.launches == b0 + 4
     assert res.scene.means.device.type == "cuda"
+
+
+def test_cli_render_and_viewer_on_card(dev, tmp_path):
+    """`render` through the command line and one viewer frame, on the card:
+    both launch K1 and K2 and equal the port's own render (uint8)."""
+    import threading
+    import urllib.request
+
+    from splat_tpu_torch import cli
+    from splat_tpu_torch.utils.image import read_png
+    from splat_tpu_torch.viewer.server import make_server
+
+    ply = str(tmp_path / "s.ply")
+    stt.save_ply(ply, stt.random_scene(20_000, seed=2, extent=1.5,
+                                       scale_range=(0.005, 0.04), device=dev))
+    k1, k2 = expand_pair_keys.launches, rasterize_tiles.launches
+    out = str(tmp_path / "r.png")
+    assert cli.main(["render", ply, "--size", "320x240", "--pos", "0,0,4",
+                     "--dup-factor", "4", "--no-center", "--out", out,
+                     "--device", "cuda"]) == 0
+    assert expand_pair_keys.launches > k1 and rasterize_tiles.launches > k2
+    scene = stt.load_ply(ply, center=False, device=dev)
+    cam = stt.Camera.create(h=240, w=320, position=(0.0, 0.0, 4.0),
+                            device=dev)
+    cfg = stt.RenderConfig(max_dup_factor=4.0)
+    want = stt.render(scene, cam, cfg, as_uint8=True).cpu().numpy()
+    got = read_png(out)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+    srv = make_server(scene, cam, cfg, port=0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    try:
+        k2 = rasterize_tiles.launches
+        url = f"http://127.0.0.1:{srv.server_address[1]}/frame.raw?yaw=0.2"
+        with urllib.request.urlopen(url, timeout=120) as r:
+            body, overflow = r.read(), r.headers["X-Splat-Overflow"]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+    assert overflow == "0" and rasterize_tiles.launches > k2
+    frame = np.frombuffer(body, np.uint8).reshape(240, 320, 4)[..., :3]
+    want = stt.render(scene, cam.with_pose(yaw=0.2), cfg,
+                      as_uint8=True).cpu().numpy()
+    assert np.abs(frame.astype(int) - want.astype(int)).max() <= 1

@@ -134,8 +134,11 @@ def test_project_gaussians_matches_jax(case):
 
 def test_load_ply_matches_jax(tmp_path):
     path = os.path.join(DATA, "surface_5k.ply")
-    for kw in ({}, {"center": False, "f_rest_layout": "raw"}):
-        want = st.load_ply(path, native=False, **kw).to_numpy()
+    # each reader against its twin: NumPy, and the default (the C++ loader
+    # where the layout allows it)
+    for kw in ({"native": False}, {}, {"center": False,
+                                       "f_rest_layout": "raw"}):
+        want = st.load_ply(path, **kw).to_numpy()
         got = stt.load_ply(path, **kw, device="cpu").to_numpy()
         for k in want:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
