@@ -49,6 +49,28 @@ Phases (any failure raises and exits non-zero):
      over those SE(3) views, 30 tiled steps, loss more than halved.  K1
      and K2 must launch on the inference commands, K3 and K4 on ``fit``.
      Prints a JSON line of the phase's times.
+  9. the multi-device paths (``splat_tpu_torch.parallel``, ``fit(mesh=)``)
+     on a world of one NCCL rank (file store under ``build/``), at the 1M
+     surface scene @1920x1080 of phases 4 and 6, every launch counter at 0
+     first: ``render_sharded_tiled`` by both routes (a2a forced at g = 1)
+     and ``render_batch_sharded_tiled`` over 8 yaw frames, each frame
+     within the slab limits of tests/test_sharding.py (>= SLAB_MIN_PSNR,
+     under SLAB_MAX_DIFF_SHARE of pixels off by more than 1e-6) of
+     ``render_tiled``, overflow 0; the row slabs of a 2-, 4- and 8-way
+     split (540, 270 and 135 rows) rendered by ``render_slab_tiled`` in
+     this process and stitched, same limits; K1 and K2 must have launched
+     on each of these paths, its counts set to 0 just before it.  Then
+     ``fit(mesh=make_mesh(1, 1))`` (data parallel over 'd', tensor
+     parallel over 'g'), BIG_FIT_STEPS tiled steps on phase 6's 2 views,
+     its loss history within FIT_LOSS_RTOL of the nearer of two
+     single-device ``fit`` runs (which differ run to run by atomic adds);
+     counted from 0 over its own timed run, K3 and K4 must have launched
+     once a view and step.  Last,
+     ``python -m splat_tpu_torch.parallel.dryrun --world 1`` must exit 0.
+     Prints a ``{"parallel": ...}`` JSON line: ms per frame of each route
+     and of ``render_tiled`` on the same frames, ms per step of each fit,
+     the stitched slabs' PSNR and the launch counts (what the collective
+     layer costs at world size 1; no multi-GPU time).
 The second-to-last line is a JSON object describing each kernel, with its
 bound (the least time the card could take for its work on these inputs:
 bytes over the memory rate, FP32 operations over the FP32 rate, or
@@ -89,6 +111,17 @@ FIT_STEPS = 30
 BIG_FIT_STEPS = 3
 ORBIT_FRAMES = 10          # phase 8: the CLI orbit of the 1M surface PLY
 VIEWER_REQUESTS = 10       # phase 8: timed raw requests at 1080p
+# phase 9: a slab-split render against one render_tiled, as
+# tests/test_sharding.py holds splat_tpu's (the slabs' tile grids differ,
+# so K2's whole-tile exit falls elsewhere)
+SLAB_MIN_PSNR = 55.0
+SLAB_MAX_DIFF_SHARE = 0.002
+PARALLEL_FRAMES = 8
+# phase 9: fit(mesh=) at world size 1 against the nearer of two single-
+# device fits (K4's atomics add in a run-dependent order; on the H100 two
+# single-device runs of the same 3 steps differed by 9.66e-6 relative,
+# and the mesh's history equalled one of them exactly: PERF.md, section 5)
+FIT_LOSS_RTOL = 1e-5
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # HBM bytes per second, and FP32 operations per second outside the tensor
 # cores.
@@ -820,6 +853,205 @@ def cli_and_viewer(device, kernels) -> dict:
     return {"inference": inference, "fit": training}
 
 
+def slab_check(got, want, what: str) -> float:
+    """The slab limits of phase 9; returns the PSNR."""
+    import torch
+    import splat_tpu_torch as stt
+    p = float(stt.psnr(got, want))
+    share = float(((got - want).abs() > 1e-6).float().mean())
+    require(p >= SLAB_MIN_PSNR and share < SLAB_MAX_DIFF_SHARE,
+            f"{what}: {p:.2f} dB, {share:.5f} of pixels off > 1e-6")
+    require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+    return p
+
+
+def parallel_path(device, kernels) -> dict:
+    """Phase 9: the sharded renders, the slab split and fit(mesh=) on a
+    world of one NCCL rank.  Returns the launch counts."""
+    import tempfile
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import splat_tpu_torch as stt
+    from splat_tpu_torch.ops.projection import project_gaussians
+    from splat_tpu_torch.parallel import sharding
+
+    expand, raster, fwd, bwd = kernels
+
+    def zero_counts():
+        for fn in kernels:
+            fn.launches = 0
+
+    def frames_ms(render, views) -> float:
+        render(views[0])                              # warm-up
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        for v in views:
+            render(v)
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / len(views)
+
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    res: dict = {"card": subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0], "world_size": 1}
+    torch.cuda.set_device(device)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0)
+        try:
+            mesh = sharding.make_mesh(1, 1, device="cuda")
+            scene, dup = bench_scene("surface", N_BIG, device)
+            local = sharding.shard_scene(scene, mesh)
+            cfg = stt.RenderConfig(max_dup_factor=dup)
+            cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0),
+                                    device=device)
+            views = stt.stack_cameras([cam.rotate(0.01 * i)
+                                       for i in range(PARALLEL_FRAMES)])
+            refs = [stt.render_tiled(scene, v, cfg) for v in views]
+            # each sharded path is driven with the counts set to 0 just
+            # before it and read just after
+            launches: dict = {}
+
+            def counted(path: str, run):
+                zero_counts()
+                out = run()
+                launches[path] = {"K1": expand.launches,
+                                  "K2": raster.launches}
+                require(expand.launches > 0 and raster.launches > 0,
+                        f"K1/K2 did not launch on {path}: {launches[path]}")
+                return out
+
+            psnr = {}
+            for route in ("gather", "a2a"):
+                img, ov = counted(
+                    f"render_sharded_tiled_{route}",
+                    lambda route=route: sharding.render_sharded_tiled(
+                        local, cam, mesh, cfg, route=route))
+                require(int(ov) == 0, f"sharded {route}: overflow {int(ov)}")
+                psnr[route] = slab_check(img, refs[0], f"sharded {route}")
+            imgs, ov = counted(
+                "render_batch_sharded_tiled",
+                lambda: sharding.render_batch_sharded_tiled(local, views,
+                                                            mesh, cfg))
+            require(int(ov) == 0, f"sharded batch: overflow {int(ov)}")
+            psnr["batch_min"] = min(
+                slab_check(imgs[i], refs[i], f"sharded batch frame {i}")
+                for i in range(PARALLEL_FRAMES))
+            proj = project_gaussians(scene, cam, cfg)
+            slab_psnr = {}
+            for n_g in (2, 4, 8):
+                h_local = H // n_g
+                parts = counted(
+                    f"render_slab_tiled_{n_g}way",
+                    lambda n_g=n_g, h_local=h_local: [
+                        sharding.render_slab_tiled(proj, g * h_local,
+                                                   h_local, W, cfg)
+                        for g in range(n_g)])
+                require(all(int(o) == 0 for _, o in parts),
+                        f"slab split {n_g}: overflow")
+                slab_psnr[str(n_g)] = slab_check(
+                    torch.cat([p for p, _ in parts]), refs[0],
+                    f"{n_g}-way slab split ({h_local} rows)")
+            res["psnr_vs_render_tiled"] = psnr
+            res["slab_split_psnr"] = slab_psnr
+            res["ms_per_frame"] = {
+                "render_tiled": frames_ms(
+                    lambda v: stt.render_tiled(scene, v, cfg), views),
+                **{f"sharded_{r}": frames_ms(
+                    lambda v, r=r: sharding.render_sharded_tiled(
+                        local, v, mesh, cfg, route=r), views)
+                   for r in ("gather", "a2a")}}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sharding.render_batch_sharded_tiled(local, views, mesh, cfg)
+            torch.cuda.synchronize()
+            res["ms_per_frame"]["sharded_batch_host_clock"] = (
+                (time.perf_counter() - t0) * 1e3 / PARALLEL_FRAMES)
+            del scene, local, proj, refs, imgs
+
+            # training: phase 6's 1M surface views, single-device, then on
+            # the mesh (data parallel over 'd', tensor parallel over 'g':
+            # each axis of one rank)
+            truth = stt.surface_scene(N_BIG, seed=0, device=device)
+            cams = stt.orbit_trajectory(cam, 2, yaw_sweep=0.05)
+            fcfg = stt.RenderConfig(max_dup_factor=1.45)
+            targets = torch.stack([stt.render(truth, c, fcfg) for c in cams])
+            start = dataclasses.replace(truth, sh=truth.sh * 0.8)
+            del truth
+            fits, fit_ms = {}, {}
+            for name, kw in (("single", {}), ("mesh_1x1", {"mesh": mesh})):
+                def run(steps, kw=kw):
+                    return stt.fit(start, cams, targets, steps=steps,
+                                   lr=5e-3, config=fcfg, method="tiled",
+                                   l1_weight=0.2, dssim_weight=0.2, **kw)
+                # warm-up; the single-device fit's is a whole second run
+                warm = run(BIG_FIT_STEPS if name == "single" else 1)
+                torch.cuda.synchronize()
+                t0, t1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                zero_counts()
+                t0.record()
+                out = run(BIG_FIT_STEPS)
+                t1.record()
+                torch.cuda.synchronize()
+                if name != "single":
+                    launches[f"fit_{name}"] = {"K3": fwd.launches,
+                                               "K4": bwd.launches}
+                    want = BIG_FIT_STEPS * len(cams)
+                    require(fwd.launches == bwd.launches == want,
+                            f"fit {name}: K3/K4 launched {fwd.launches}/"
+                            f"{bwd.launches} times, not once a view and "
+                            f"step ({want})")
+                fit_ms[name] = t0.elapsed_time(t1) / BIG_FIT_STEPS
+                fits[name] = out.losses.cpu().numpy().astype(np.float64)
+                require(bool(np.isfinite(fits[name]).all()),
+                        f"fit {name}: non-finite loss")
+                if name == "single":
+                    singles = [warm.losses.cpu().numpy().astype(np.float64),
+                               fits[name]]
+
+            def rel_diff(a, b) -> float:
+                return float(np.max(np.abs(a - b) / np.abs(b)))
+
+            # the single-device fit varies run to run on the card (atomic
+            # adds in K4 and in autograd's index backward): the mesh's
+            # history is held against the nearer of two single-device runs
+            res["fit_single_run_to_run_rel_diff"] = rel_diff(*singles)
+            rel = min(rel_diff(fits["mesh_1x1"], s) for s in singles)
+            require(rel <= FIT_LOSS_RTOL, f"fit on the mesh: losses "
+                    f"{fits['mesh_1x1']} vs single {singles} "
+                    f"({rel:.2e} relative)")
+            res["fit_mesh_1x1_max_rel_loss_diff"] = rel
+            res["launches"] = launches
+            res["fit_ms_per_step"] = fit_ms
+            res["fit_losses"] = {k: [float(x) for x in v]
+                                 for k, v in fits.items()}
+            del start, targets
+        finally:
+            dist.destroy_process_group()
+    t0 = time.perf_counter()
+    dry = subprocess.run(
+        [sys.executable, "-m", "splat_tpu_torch.parallel.dryrun", "--world",
+         "1", "--timeout", "300"], cwd=ROOT, capture_output=True, text=True,
+        timeout=360)
+    res["dryrun_s"] = time.perf_counter() - t0
+    print(dry.stdout.strip())
+    require(dry.returncode == 0, f"dryrun --world 1 exited "
+                                 f"{dry.returncode}: {dry.stderr[-2000:]}")
+    for key, ms in res["ms_per_frame"].items():
+        print(f"[parallel] {key}: {ms:.3f} ms/frame")
+    for key, ms in res["fit_ms_per_step"].items():
+        print(f"[parallel] fit {key}: {ms:.3f} ms/step")
+    print(json.dumps({"parallel": res}, default=str).replace(
+        "Infinity", '"inf"'))
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -901,6 +1133,10 @@ def main() -> int:
     for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
         k["cli_launches"] = cli_counts["fit" if key in ("K3", "K4")
                                        else "inference"][key]
+    par = parallel_path(device, kernels)
+    for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
+        k["parallel_launches"] = sum(n.get(key, 0)
+                                     for n in par["launches"].values())
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,10 +36,11 @@ from splat_tpu_torch.render.api import (auto_config, pair_stats, render,
 from splat_tpu_torch.render.dense import render_dense
 from splat_tpu_torch.render.diff import render_tiled_diff
 from splat_tpu_torch.render.tiled import render_tiled, render_tiled_checked
-from splat_tpu_torch.train import RawParams, fit
+from splat_tpu_torch.train import FitResult, RawParams, fit
 from splat_tpu_torch.utils.fixtures import (naive_gaussians, random_scene,
                                             surface_scene)
 from splat_tpu_torch.utils.image import psnr
+from splat_tpu_torch import parallel
 
 __version__ = "0.1.0"
 
@@ -63,10 +64,12 @@ __all__ = [
     "render_tiled",
     "render_tiled_checked",
     "render_tiled_diff",
+    "FitResult",
     "RawParams",
     "fit",
     "naive_gaussians",
     "random_scene",
     "surface_scene",
     "psnr",
+    "parallel",
 ]

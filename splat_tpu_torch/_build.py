@@ -39,13 +39,13 @@ _SIGNATURES = {
     "splat_expand_pairs": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P, _P,
                            _P],
     "splat_rasterize": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
+                        _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P],
     "splat_rasterize_train_fwd": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _I,
-                                  _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _P],
     "splat_rasterize_train_bwd": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _P,
                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
-                                  _F, _I, _I, _I, _I, _I, _P],
+                                  _F, _I, _I, _I, _I, _I, _I, _P],
     "splat_strip_reaches": [_P, _P, _P, _I, _P],
 }
 

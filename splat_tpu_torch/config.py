@@ -12,6 +12,26 @@ from __future__ import annotations
 import dataclasses
 import math
 
+# What the card's raster kernels (K2, K3, K4) take: a tile's pixels live in
+# the registers of 256-thread blocks, at most 16 a thread, and a tile of
+# more than 16 x 256 pixels takes one block per group of them, at most 8
+# (K2's and K3's blocks of a tile vote as a thread-block cluster, and a
+# portable cluster holds 8).  Any chunk >= 1 (larger batches are staged in
+# parts).  RenderConfig holds every device to these limits, so a config the
+# card refuses fails on the CPU too.
+MAX_TILE_PIXELS = 8 * 16 * 256
+
+
+def check_kernel_limits(tile_w: int, tile_h: int, chunk: int) -> None:
+    """Raise ValueError where the raster kernels cannot take a tile of
+    ``tile_w x tile_h`` pixels or a batch of ``chunk`` pairs."""
+    if tile_w * tile_h > MAX_TILE_PIXELS:
+        raise ValueError(
+            f"tile of {tile_w}x{tile_h} = {tile_w * tile_h} pixels exceeds "
+            f"the raster kernels' {MAX_TILE_PIXELS}")
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
@@ -28,7 +48,8 @@ class RenderConfig:
         walk stops once every pixel has T < alpha_min (checked every 4
         windows) instead of at the exact f32 saturation cut.
       tile_px / tile_py: tile width / height in pixels (tile_py 0 = square).
-        The raster kernel takes tiles of at most 4096 pixels.
+        At most MAX_TILE_PIXELS (32768) pixels a tile, on every device:
+        ``splat_tpu`` takes larger tiles, the card's kernels do not.
       max_dup_factor: capacity of the (gaussian, tile) pair buffer as a
         multiple of N.  Overflow is counted and reported, never silent.
       chunk: the raster kernel's shared-memory batch size: the pairs of a
@@ -114,8 +135,7 @@ class RenderConfig:
                 "sigma_cutoff=inf requires tight_radius=True: without the "
                 "opacity-aware radius every bbox covers the whole screen "
                 "(pair count = N x tiles)")
-        if self.chunk < 1:
-            raise ValueError(f"chunk must be >= 1, got {self.chunk}")
+        check_kernel_limits(self.tile_w, self.tile_h, self.chunk)
         if self.subtile_exit:
             raise NotImplementedError(
                 "subtile_exit (per-group phase compaction) is not ported")

@@ -2,14 +2,17 @@
 //
 // Replaces the TPU kernel splat_tpu/render/kernels.py::_raster_kernel.
 // Blocks of 256 threads; a tile's pixels live in registers (PPT a thread, 4
-// for 32x32 tiles).  The tile's sorted pairs [start, end) are staged through
-// shared memory in batches of `chunk`, and every pixel composites the pairs
-// it keeps serially: C += alpha * T * color, T *= 1 - alpha, which is what
-// the TPU's exclusive-prefix-product windows compute.  After each batch a
-// vote of the whole tile ends the walk once every one of its pixels, pixels
-// past the image edge included, has T < alpha_min: the TPU kernel's
-// whole-tile exit at batch granularity.  Batches start at absolute multiples
-// of `chunk` in the sorted pair array, as the TPU windows do.
+// for 32x32 tiles; a tile of more than 16 x 256 pixels takes several blocks
+// of 16, one per pixel group, as a thread-block cluster that votes like a
+// split heavy tile).  The tile's sorted pairs [start, end) are staged through
+// shared memory in batches of `chunk` (a batch of more than STAGE_PAIRS in
+// parts), and every pixel composites the pairs it keeps serially:
+// C += alpha * T * color, T *= 1 - alpha, which is what the TPU's
+// exclusive-prefix-product windows compute.  After each batch a vote of the
+// whole tile ends the walk once every one of its pixels, pixels past the
+// image edge included, has T < alpha_min: the TPU kernel's whole-tile exit at
+// batch granularity.  Batches start at absolute multiples of `chunk` in the
+// sorted pair array, as the TPU windows do.
 //
 // Pixel convention as on the TPU: integer pixel coordinates (no +0.5) and
 // dy = cy - py.  The image is written as (H, W, C) directly.
@@ -125,38 +128,45 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
 
   int batch = 0;
   for (int kb = s - s % a.chunk; kb < e; kb += a.chunk, ++batch) {
-    __syncthreads();  // the previous batch is consumed
-    for (int q = threadIdx.x; q < a.chunk; q += THREADS) {
-      const int k = kb + q;
-      if (k >= s && k < e) stage_pair(smem + 3 * q, a.feats, a.kp, k);
-    }
-    __syncthreads();
-    const int lo = max(s, kb) - kb;
-    const int hi = min(e, kb + a.chunk) - kb;
-    if (st.any) {
-      // lane l tests pair q0 + l against the warp's strip; the warp then
-      // walks the pairs that passed, in order
-      for (int q0 = lo; q0 < hi; q0 += 32) {
-        const int ql = q0 + lane;
-        unsigned hits = __ballot_sync(
-            FULL, ql < hi && (!a.use_bbox || strip_reaches(st, smem[3 * ql])));
-        while (hits) {
-          const int q = q0 + __ffs(hits) - 1;
-          hits &= hits - 1;
-          const float4 g0 = smem[3 * q];
-          const float4 g1 = smem[3 * q + 1];
-          const float4 g2 = smem[3 * q + 2];
+    // the batch's pairs [max(s, kb), b_end), STAGE_PAIRS at a time
+    const int b_end = min(e, kb + a.chunk);
+    // not unrolled: unrolling these two loops took K2<4> from 64 to 80
+    // registers and K3<4> from 80 to 127 (ptxas, sm_90a)
+#pragma unroll 1
+    for (int k0 = max(s, kb); k0 < b_end; k0 += STAGE_PAIRS) {
+      __syncthreads();  // the previous pairs are consumed
+      const int hi = min(b_end - k0, STAGE_PAIRS);
+#pragma unroll 1
+      for (int q = threadIdx.x; q < hi; q += THREADS)
+        stage_pair(smem + 3 * q, a.feats, a.kp, k0 + q);
+      __syncthreads();
+      if (st.any) {
+        // lane l tests pair q0 + l against the warp's strip; the warp then
+        // walks the pairs that passed, in order
+        for (int q0 = 0; q0 < hi; q0 += 32) {
+          const int ql = q0 + lane;
+          unsigned hits = __ballot_sync(
+              FULL,
+              ql < hi && (!a.use_bbox || strip_reaches(st, smem[3 * ql])));
+          while (hits) {
+            const int q = q0 + __ffs(hits) - 1;
+            hits &= hits - 1;
+            const float4 g0 = smem[3 * q];
+            const float4 g1 = smem[3 * q + 1];
+            const float4 g2 = smem[3 * q + 2];
 #pragma unroll
-          for (int i = 0; i < P; ++i) {
-            if (!on[i]) continue;
-            const Alpha al = pair_alpha(px[i], py[i], g0, g1, a.alpha_clamp,
-                                        a.alpha_min, a.use_bbox);
-            if (!al.keep) continue;
-            const float w = __fmul_rn(al.alpha, tr[i]);
-            cr[i] = __fadd_rn(cr[i], __fmul_rn(w, g2.x));
-            cg_[i] = __fadd_rn(cg_[i], __fmul_rn(w, g2.y));
-            cb[i] = __fadd_rn(cb[i], __fmul_rn(w, g2.z));
-            tr[i] = __fmul_rn(tr[i], __fsub_rn(1.f, al.alpha));
+            for (int i = 0; i < P; ++i) {
+              if (!on[i]) continue;
+              const Alpha al =
+                  pair_alpha(px[i], py[i], g0, g1, a.alpha_clamp,
+                             a.alpha_min, a.use_bbox);
+              if (!al.keep) continue;
+              const float w = __fmul_rn(al.alpha, tr[i]);
+              cr[i] = __fadd_rn(cr[i], __fmul_rn(w, g2.x));
+              cg_[i] = __fadd_rn(cg_[i], __fmul_rn(w, g2.y));
+              cb[i] = __fadd_rn(cb[i], __fmul_rn(w, g2.z));
+              tr[i] = __fmul_rn(tr[i], __fsub_rn(1.f, al.alpha));
+            }
           }
         }
       }
@@ -219,9 +229,16 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
 template <int PPT>
 __global__ void __launch_bounds__(THREADS) raster_kernel(
     RasterArgs a, const int32_t* __restrict__ order,
-    const int32_t* __restrict__ nheavy, int num_tiles) {
-  extern __shared__ float4 smem[];  // [chunk][3]
+    const int32_t* __restrict__ nheavy, int num_tiles, int groups) {
+  extern __shared__ float4 smem[];  // [min(chunk, STAGE_PAIRS)][3]
   __shared__ int vote[2];
+  if constexpr (PPT == MAX_PPT) {
+    if (groups > 1) {  // every tile a cluster of `groups` blocks, in order
+      raster_walk<PPT, true>(a, order[blockIdx.x / groups],
+                             blockIdx.x % groups, groups, smem, vote);
+      return;
+    }
+  }
   constexpr int S = split_of(PPT);
   Work w;
   if (!work_of(order, nheavy, num_tiles, S, &w)) return;
@@ -236,16 +253,11 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
 
 template <int PPT>
 static cudaError_t launch(const RasterArgs& a, const int32_t* order,
-                          const int32_t* nheavy, int num_tiles,
+                          const int32_t* nheavy, int num_tiles, int groups,
                           cudaStream_t st) {
-  constexpr int S = split_of(PPT);
-  const size_t smem = (size_t)3 * sizeof(float4) * a.chunk;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        raster_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+  const int S = blocks_per_tile(PPT, groups);
+  const int staged = a.chunk < STAGE_PAIRS ? a.chunk : STAGE_PAIRS;
+  const size_t smem = (size_t)3 * sizeof(float4) * staged;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)num_tiles * S);
   cfg.blockDim = dim3(THREADS);
@@ -259,7 +271,8 @@ static cudaError_t launch(const RasterArgs& a, const int32_t* order,
   cfg.attrs = &attr;
   cfg.numAttrs = S > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, raster_kernel<PPT>, a,
-                                             order, nheavy, num_tiles);
+                                             order, nheavy, num_tiles,
+                                             groups);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -271,7 +284,8 @@ extern "C" int splat_rasterize(const void* tile_start, const void* tile_end,
                                int num_tiles, int chunk, float alpha_clamp,
                                float alpha_min, float bg0, float bg1,
                                float bg2, int nchan, int use_bbox, int ppt,
-                               int slots, int min_pairs, void* stream) {
+                               int groups, int slots, int min_pairs,
+                               void* stream) {
   const RasterArgs a = {(const int32_t*)tile_start, (const int32_t*)tile_end,
                         (const float*)feats, kp, (float*)out, H, W, tile_w,
                         tile_h, tiles_x, chunk, alpha_clamp, alpha_min, bg0,
@@ -279,19 +293,19 @@ extern "C" int splat_rasterize(const void* tile_start, const void* tile_end,
   int32_t* o = (int32_t*)order;
   int32_t* nh = (int32_t*)nheavy;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (ppt < 1) return (int)cudaErrorInvalidValue;
+  if (!valid_launch(ppt, groups)) return (int)cudaErrorInvalidValue;
   // the exit ends a walk early, and where is not known before the launch:
   // the plan goes by the tile's pairs, an upper bound of its walk
   const cudaError_t err = plan_tiles(a.tile_start, a.tile_end, num_tiles,
-                                     split_of(ppt), slots, min_pairs, o, nh,
-                                     st);
+                                     plan_split(ppt, groups), slots,
+                                     min_pairs, o, nh, st);
   if (err != cudaSuccess) return (int)err;
   switch (ppt) {
-    case 1: return (int)launch<1>(a, o, nh, num_tiles, st);
-    case 2: return (int)launch<2>(a, o, nh, num_tiles, st);
-    case 4: return (int)launch<4>(a, o, nh, num_tiles, st);
-    case 8: return (int)launch<8>(a, o, nh, num_tiles, st);
-    case 16: return (int)launch<16>(a, o, nh, num_tiles, st);
+    case 1: return (int)launch<1>(a, o, nh, num_tiles, groups, st);
+    case 2: return (int)launch<2>(a, o, nh, num_tiles, groups, st);
+    case 4: return (int)launch<4>(a, o, nh, num_tiles, groups, st);
+    case 8: return (int)launch<8>(a, o, nh, num_tiles, groups, st);
+    case 16: return (int)launch<16>(a, o, nh, num_tiles, groups, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -23,6 +23,33 @@ __host__ __device__ constexpr int split_of(int ppt) {
   return ppt < 4 ? ppt : 4;
 }
 
+// The most pixels a thread holds.  A tile of more than THREADS * MAX_PPT
+// pixels takes `groups` blocks of MAX_PPT (render/kernels.py::_ppt), at most
+// MAX_GROUPS: K2's and K3's blocks of one tile vote as a thread-block
+// cluster, and a portable cluster holds at most 8 blocks.
+#define MAX_PPT 16
+#define MAX_GROUPS 8
+
+// Pairs staged in shared memory at a time (48 bytes each: 48,000 bytes, in
+// the 48 KB a block gets without opting in).  A batch or window of more
+// than `chunk` pairs is staged in parts; its exit vote still comes after
+// the whole batch or window.
+#define STAGE_PAIRS 1000
+
+// The launch's grid and cluster width: `groups` blocks a tile for a tile of
+// several pixel groups, else the heavy-tile split of `ppt`; and the split
+// the work list plans for (none where every tile takes `groups` blocks).
+static inline int blocks_per_tile(int ppt, int groups) {
+  return groups > 1 ? groups : split_of(ppt);
+}
+static inline int plan_split(int ppt, int groups) {
+  return groups > 1 ? 1 : split_of(ppt);
+}
+static inline bool valid_launch(int ppt, int groups) {
+  return ppt >= 1 && groups >= 1 && groups <= MAX_GROUPS &&
+         (groups == 1 || ppt == MAX_PPT);
+}
+
 // A pair's features in shared memory, as three float4:
 // {cx, cy, rx^2, ry^2}, {a2, b2, c2, opacity}, {r, g, b, 0}.
 __device__ __forceinline__ void stage_pair(float4* dst,

@@ -2,8 +2,10 @@
 //
 // K3 replaces the TPU kernel splat_tpu/render/diff.py::_fwd_kernel.  It is
 // K2's walk (csrc/raster.cu) without the 1/255 exit: blocks of 256 threads,
-// the pixels in registers (PPT per thread), the pairs of each window staged
-// through shared memory.  Per pixel and kept pair it carries
+// the pixels in registers (PPT per thread; a tile of more than 16 x 256
+// pixels takes one block of 16 per pixel group, K3's as a voting cluster),
+// the pairs of each window staged through shared memory (a window of more
+// than STAGE_PAIRS in parts).  Per pixel and kept pair it carries
 // C += alpha * T * color, T *= 1 - alpha' and logT += log1p(-alpha'),
 // alpha' = min(alpha, 0.999999) when alpha_clamp >= 0.999999.  Windows are
 // `chunk` pairs wide and start at (tile_start / 128) * 128, as the TPU's do.
@@ -123,43 +125,49 @@ __device__ __forceinline__ void fwd_walk(const FwdArgs& a, int t, int group,
   const int n_full = nch / SAT_CHECK_EVERY * SAT_CHECK_EVERY;
   int walked = 0, checks = 0;
   for (int j = 0; j < nch; ++j) {
+    // the window's pairs [max(s, kb), w_end), STAGE_PAIRS at a time
     const int kb = wbase + j * a.chunk;
-    __syncthreads();  // the previous window is consumed
-    for (int q = threadIdx.x; q < a.chunk; q += THREADS) {
-      const int k = kb + q;
-      if (k >= s && k < e) stage_pair(smem + 3 * q, a.feats, a.kp, k);
-    }
-    __syncthreads();
-    const int lo = max(s, kb) - kb;
-    const int hi = min(e, kb + a.chunk) - kb;
-    if (st.any) {
-      // lane l tests pair q0 + l against the warp's strip; the warp then
-      // walks the pairs that passed, in order
-      for (int q0 = lo; q0 < hi; q0 += 32) {
-        const int ql = q0 + lane;
-        unsigned hits = __ballot_sync(
-            FULL, ql < hi && (!a.use_bbox || strip_reaches(st, smem[3 * ql])));
-        while (hits) {
-          const int q = q0 + __ffs(hits) - 1;
-          hits &= hits - 1;
-          const float4 g0 = smem[3 * q];
-          const float4 g1 = smem[3 * q + 1];
-          const float4 g2 = smem[3 * q + 2];
+    const int w_end = min(e, kb + a.chunk);
+    // not unrolled: unrolling these two loops took K2<4> from 64 to 80
+    // registers and K3<4> from 80 to 127 (ptxas, sm_90a)
+#pragma unroll 1
+    for (int k0 = max(s, kb); k0 < w_end; k0 += STAGE_PAIRS) {
+      __syncthreads();  // the previous pairs are consumed
+      const int hi = min(w_end - k0, STAGE_PAIRS);
+#pragma unroll 1
+      for (int q = threadIdx.x; q < hi; q += THREADS)
+        stage_pair(smem + 3 * q, a.feats, a.kp, k0 + q);
+      __syncthreads();
+      if (st.any) {
+        // lane l tests pair q0 + l against the warp's strip; the warp then
+        // walks the pairs that passed, in order
+        for (int q0 = 0; q0 < hi; q0 += 32) {
+          const int ql = q0 + lane;
+          unsigned hits = __ballot_sync(
+              FULL,
+              ql < hi && (!a.use_bbox || strip_reaches(st, smem[3 * ql])));
+          while (hits) {
+            const int q = q0 + __ffs(hits) - 1;
+            hits &= hits - 1;
+            const float4 g0 = smem[3 * q];
+            const float4 g1 = smem[3 * q + 1];
+            const float4 g2 = smem[3 * q + 2];
 #pragma unroll
-          for (int i = 0; i < P; ++i) {
-            if (!on[i]) continue;
-            const Alpha al_ = pair_alpha(px[i], py[i], g0, g1,
-                                         a.alpha_clamp, a.alpha_min,
-                                         a.use_bbox);
-            if (!al_.keep) continue;
-            const float al =
-                a.log_cap ? fminf(al_.alpha, ALPHA_LOG_CAP) : al_.alpha;
-            const float w = __fmul_rn(al_.alpha, tr[i]);
-            cr[i] = __fadd_rn(cr[i], __fmul_rn(w, g2.x));
-            cg_[i] = __fadd_rn(cg_[i], __fmul_rn(w, g2.y));
-            cb[i] = __fadd_rn(cb[i], __fmul_rn(w, g2.z));
-            tr[i] = __fmul_rn(tr[i], __fsub_rn(1.f, al));
-            lt[i] = __fadd_rn(lt[i], log1pf(-al));
+            for (int i = 0; i < P; ++i) {
+              if (!on[i]) continue;
+              const Alpha al_ = pair_alpha(px[i], py[i], g0, g1,
+                                           a.alpha_clamp, a.alpha_min,
+                                           a.use_bbox);
+              if (!al_.keep) continue;
+              const float al =
+                  a.log_cap ? fminf(al_.alpha, ALPHA_LOG_CAP) : al_.alpha;
+              const float w = __fmul_rn(al_.alpha, tr[i]);
+              cr[i] = __fadd_rn(cr[i], __fmul_rn(w, g2.x));
+              cg_[i] = __fadd_rn(cg_[i], __fmul_rn(w, g2.y));
+              cb[i] = __fadd_rn(cb[i], __fmul_rn(w, g2.z));
+              tr[i] = __fmul_rn(tr[i], __fsub_rn(1.f, al));
+              lt[i] = __fadd_rn(lt[i], log1pf(-al));
+            }
           }
         }
       }
@@ -210,9 +218,16 @@ __device__ __forceinline__ void fwd_walk(const FwdArgs& a, int t, int group,
 template <int PPT>
 __global__ void __launch_bounds__(THREADS) train_fwd_kernel(
     FwdArgs a, const int32_t* __restrict__ order,
-    const int32_t* __restrict__ nheavy, int num_tiles) {
-  extern __shared__ float4 smem[];  // [chunk][3]
+    const int32_t* __restrict__ nheavy, int num_tiles, int groups) {
+  extern __shared__ float4 smem[];  // [min(chunk, STAGE_PAIRS)][3]
   __shared__ int vote[2];
+  if constexpr (PPT == MAX_PPT) {
+    if (groups > 1) {  // every tile a cluster of `groups` blocks, in order
+      fwd_walk<PPT, true>(a, order[blockIdx.x / groups], blockIdx.x % groups,
+                          groups, smem, vote);
+      return;
+    }
+  }
   constexpr int S = split_of(PPT);
   Work w;
   if (!work_of(order, nheavy, num_tiles, S, &w)) return;
@@ -415,9 +430,16 @@ template <int PPT>
 __global__ void __launch_bounds__(THREADS, PPT <= 4 ? 3 : 1)
     train_bwd_kernel(
     BwdArgs a, const int32_t* __restrict__ order,
-    const int32_t* __restrict__ nheavy, int num_tiles) {
+    const int32_t* __restrict__ nheavy, int num_tiles, int groups) {
   __shared__ float4 sf[BWD_BATCH * 3];
   __shared__ float sred[NWARPS][BWD_BATCH][NG];
+  if constexpr (PPT == MAX_PPT) {
+    if (groups > 1) {  // every tile `groups` blocks, in order
+      bwd_walk<PPT>(a, order[blockIdx.x / groups], blockIdx.x % groups, sf,
+                    sred);
+      return;
+    }
+  }
   constexpr int S = split_of(PPT);
   Work w;
   if (!work_of(order, nheavy, num_tiles, S, &w)) return;
@@ -433,15 +455,10 @@ __global__ void __launch_bounds__(THREADS, PPT <= 4 ? 3 : 1)
 template <int PPT>
 static cudaError_t launch_fwd(const FwdArgs& a, const int32_t* order,
                               const int32_t* nheavy, int num_tiles,
-                              cudaStream_t st) {
-  constexpr int S = split_of(PPT);
-  const size_t smem = (size_t)3 * sizeof(float4) * a.chunk;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        train_fwd_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
+                              int groups, cudaStream_t st) {
+  const int S = blocks_per_tile(PPT, groups);
+  const int staged = a.chunk < STAGE_PAIRS ? a.chunk : STAGE_PAIRS;
+  const size_t smem = (size_t)3 * sizeof(float4) * staged;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)num_tiles * S);
   cfg.blockDim = dim3(THREADS);
@@ -455,7 +472,8 @@ static cudaError_t launch_fwd(const FwdArgs& a, const int32_t* order,
   cfg.attrs = &attr;
   cfg.numAttrs = S > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, train_fwd_kernel<PPT>, a,
-                                             order, nheavy, num_tiles);
+                                             order, nheavy, num_tiles,
+                                             groups);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -467,7 +485,8 @@ extern "C" int splat_rasterize_train_fwd(
     void* out_lt, void* out_cut, int H, int W, int tile_w, int tile_h,
     int tiles_x, int num_tiles, int chunk, float alpha_clamp,
     float alpha_min, int log_cap, float sat_cut_log, int sat_exit,
-    int use_bbox, int ppt, int slots, int min_pairs, void* stream) {
+    int use_bbox, int ppt, int groups, int slots, int min_pairs,
+    void* stream) {
   const FwdArgs a = {(const int32_t*)tile_start, (const int32_t*)tile_end,
                      (const float*)feats, kp, (float*)out_c, (float*)out_lt,
                      (int32_t*)out_cut, H, W, tile_w, tile_h, tiles_x, chunk,
@@ -476,17 +495,17 @@ extern "C" int splat_rasterize_train_fwd(
   int32_t* o = (int32_t*)order;
   int32_t* nh = (int32_t*)nheavy;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (ppt < 1) return (int)cudaErrorInvalidValue;
+  if (!valid_launch(ppt, groups)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = plan_tiles(a.tile_start, a.tile_end, num_tiles,
-                                     split_of(ppt), slots, min_pairs, o, nh,
-                                     st);
+                                     plan_split(ppt, groups), slots,
+                                     min_pairs, o, nh, st);
   if (err != cudaSuccess) return (int)err;
   switch (ppt) {
-    case 1: return (int)launch_fwd<1>(a, o, nh, num_tiles, st);
-    case 2: return (int)launch_fwd<2>(a, o, nh, num_tiles, st);
-    case 4: return (int)launch_fwd<4>(a, o, nh, num_tiles, st);
-    case 8: return (int)launch_fwd<8>(a, o, nh, num_tiles, st);
-    case 16: return (int)launch_fwd<16>(a, o, nh, num_tiles, st);
+    case 1: return (int)launch_fwd<1>(a, o, nh, num_tiles, groups, st);
+    case 2: return (int)launch_fwd<2>(a, o, nh, num_tiles, groups, st);
+    case 4: return (int)launch_fwd<4>(a, o, nh, num_tiles, groups, st);
+    case 8: return (int)launch_fwd<8>(a, o, nh, num_tiles, groups, st);
+    case 16: return (int)launch_fwd<16>(a, o, nh, num_tiles, groups, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -501,8 +520,8 @@ extern "C" int splat_rasterize_train_bwd(
     const void* ranks, const void* g_c, const void* g_lt, const void* lt,
     void* out, int H, int W, int tile_w, int tile_h, int tiles_x,
     int num_tiles, int chunk, float alpha_clamp, float alpha_min,
-    int log_cap, int use_bbox, int ppt, int slots, int min_pairs,
-    void* stream) {
+    int log_cap, int use_bbox, int ppt, int groups, int slots,
+    int min_pairs, void* stream) {
   const BwdArgs a = {(const int32_t*)tile_start, (const int32_t*)tile_end,
                      (const int32_t*)cut, (const float*)feats, kp,
                      (const int64_t*)ranks, (const float*)g_c,
@@ -512,14 +531,14 @@ extern "C" int splat_rasterize_train_bwd(
   int32_t* o = (int32_t*)order;
   int32_t* nh = (int32_t*)nheavy;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (ppt < 1) return (int)cudaErrorInvalidValue;
+  if (!valid_launch(ppt, groups)) return (int)cudaErrorInvalidValue;
   const cudaError_t err = plan_tiles(a.tile_start, (const int32_t*)walk_end,
-                                     num_tiles, split_of(ppt), slots,
-                                     min_pairs, o, nh, st);
+                                     num_tiles, plan_split(ppt, groups),
+                                     slots, min_pairs, o, nh, st);
   if (err != cudaSuccess) return (int)err;
 #define SPLAT_BWD(P)                                                        \
-  train_bwd_kernel<P><<<num_tiles * split_of(P), THREADS, 0, st>>>(         \
-      a, o, nh, num_tiles)
+  train_bwd_kernel<P><<<num_tiles * blocks_per_tile(P, groups), THREADS, 0, \
+                        st>>>(a, o, nh, num_tiles, groups)
   switch (ppt) {
     case 1: SPLAT_BWD(1); break;
     case 2: SPLAT_BWD(2); break;

@@ -15,7 +15,7 @@ import torch
 
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.ops.sh import eval_sh_cols
-from splat_tpu_torch.ops.transforms import compute_cov6_cols
+from splat_tpu_torch.ops.transforms import compute_cov6_cols, pack_cov3d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +38,40 @@ class ProjectedGaussians:
     color: torch.Tensor
     opacity: torch.Tensor
     visible: torch.Tensor
+
+
+def ewa_project(means, cov3d, view, htanx, htany, focal,
+                lowpass: float) -> torch.Tensor:
+    """(N, 3, 3) world covariances -> (N, 2, 2) pixel-space covariances
+    (reference src/gaussians.rs:114-161).  ``htanx`` / ``htany`` are
+    accepted as ``splat_tpu`` accepts them and have no effect: the
+    reference's tan(fov) clamp touches only terms its truncation drops."""
+    del htanx, htany
+    a, b, c = ewa_project_packed(means, pack_cov3d(cov3d), view, focal,
+                                 lowpass)
+    return torch.stack([torch.stack([a, b], dim=-1),
+                        torch.stack([b, c], dim=-1)], dim=-2)
+
+
+def ewa_project_packed(means, cov6, view, focal, lowpass: float):
+    """(N, 3) means and (N, 6) packed covariances -> the (a, b, c) terms,
+    each (N,), of the 2D pixel-space covariance: (f / tz)^2 times u^T S u,
+    u^T S v, v^T S v with u, v the first two rows of the view rotation,
+    plus ``lowpass`` on the diagonal (the reference's truncated EWA)."""
+    xx, xy, xz, yy, yz, zz = (cov6[:, i] for i in range(6))
+    u, v = view[0, :3], view[1, :3]
+
+    def quad(p, q):  # p^T Sigma q, elementwise over N
+        return (xx * (p[0] * q[0]) + yy * (p[1] * q[1]) + zz * (p[2] * q[2])
+                + xy * (p[0] * q[1] + p[1] * q[0])
+                + xz * (p[0] * q[2] + p[2] * q[0])
+                + yz * (p[1] * q[2] + p[2] * q[1]))
+
+    tz = (view[2, 0] * means[:, 0] + view[2, 1] * means[:, 1]
+          + view[2, 2] * means[:, 2] + view[2, 3])
+    s2 = (focal / tz) ** 2
+    return (s2 * quad(u, u) + lowpass, s2 * quad(u, v),
+            s2 * quad(v, v) + lowpass)
 
 
 def encode_depth_color(depth, visible, config: RenderConfig):

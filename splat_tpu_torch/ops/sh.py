@@ -1,11 +1,14 @@
 """Real spherical-harmonics color evaluation, degrees 0-3.
 
-PyTorch port of ``splat_tpu.ops.sh.eval_sh_cols``: the same constants, band
-polynomials, degree-1 sign pattern and final +0.5 shift (reference
-src/gaussians.rs:11-99).
+PyTorch port of ``splat_tpu.ops.sh``: ``eval_sh`` on (..., 16, 3)
+coefficients, its column form ``eval_sh_cols`` and ``rgb_to_dc``, with the
+same constants, band polynomials, degree-1 sign pattern and final +0.5
+shift (reference src/gaussians.rs:11-99).
 """
 
 from __future__ import annotations
+
+import torch
 
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
@@ -14,6 +17,22 @@ SH_C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
 SH_C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
          0.3731763325901154, -0.4570457994644658, 1.445305721320277,
          -0.5900435899266435)
+
+
+def eval_sh(sh: torch.Tensor, dirs: torch.Tensor, degree: int) -> torch.Tensor:
+    """View-dependent color: sh (..., 16, 3) coefficients (DC first,
+    interleaved RGB) and dirs (..., 3) unit view directions give (..., 3)
+    colors with the +0.5 shift, unclamped."""
+    shs = [sh[..., k, c] for k in range(16) for c in range(3)]
+    cols = eval_sh_cols(shs, dirs[..., 0], dirs[..., 1], dirs[..., 2],
+                        degree)
+    return torch.stack(cols, dim=-1)
+
+
+def rgb_to_dc(rgb) -> torch.Tensor:
+    """Inverse of the DC band: the sh[..., 0, :] that gives color ``rgb``
+    (the full-precision SH_C0; the reference's fixture truncates it)."""
+    return (torch.as_tensor(rgb, dtype=torch.float32) - 0.5) / SH_C0
 
 
 def eval_sh_cols(shs, x, y, z, degree: int):

@@ -1,8 +1,9 @@
 """Quaternion / covariance transforms, elementwise over the gaussian axis.
 
-PyTorch port of ``splat_tpu.ops.transforms.compute_cov6_cols``: the world
-covariance R diag(s^2) R^T of the active Rust renderer (reference
-src/gaussians.rs:101-113), as six (N,) columns.
+PyTorch port of ``splat_tpu.ops.transforms``: the world covariance
+R diag(s^2) R^T of the active Rust renderer (reference
+src/gaussians.rs:101-113), as six (N,) columns (``compute_cov6_cols``, what
+the projection reads), packed (N, 6) or full (N, 3, 3).
 """
 
 from __future__ import annotations
@@ -52,3 +53,35 @@ def quat_to_rotmat(quats: torch.Tensor) -> torch.Tensor:
                      1 - 2 * (x * x + y * y)], dim=-1),
     ]
     return torch.stack(rows, dim=-2)
+
+
+def compute_cov3d(quats: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(N, 4), (N, 3) -> (N, 3, 3) world covariances R diag(s^2) R^T."""
+    return unpack_cov3d(compute_cov3d_packed(quats, scales))
+
+
+def compute_cov3d_packed(quats: torch.Tensor,
+                         scales: torch.Tensor) -> torch.Tensor:
+    """(N, 4), (N, 3) -> (N, 6) packed (xx, xy, xz, yy, yz, zz)
+    covariances, as ``splat_tpu`` computes them: rows of R diag(s)
+    multiplied out."""
+    m = quat_to_rotmat(quats) * scales[..., None, :]
+    mx, my, mz = m[..., 0, :], m[..., 1, :], m[..., 2, :]
+    return torch.stack([(mx * mx).sum(-1), (mx * my).sum(-1),
+                        (mx * mz).sum(-1), (my * my).sum(-1),
+                        (my * mz).sum(-1), (mz * mz).sum(-1)], dim=-1)
+
+
+def pack_cov3d(cov: torch.Tensor) -> torch.Tensor:
+    """(N, 3, 3) symmetric -> (N, 6) (xx, xy, xz, yy, yz, zz)."""
+    return torch.stack([cov[..., 0, 0], cov[..., 0, 1], cov[..., 0, 2],
+                        cov[..., 1, 1], cov[..., 1, 2], cov[..., 2, 2]],
+                       dim=-1)
+
+
+def unpack_cov3d(packed: torch.Tensor) -> torch.Tensor:
+    """(N, 6) -> (N, 3, 3) symmetric."""
+    xx, xy, xz, yy, yz, zz = (packed[..., i] for i in range(6))
+    return torch.stack([torch.stack([xx, xy, xz], dim=-1),
+                        torch.stack([xy, yy, yz], dim=-1),
+                        torch.stack([xz, yz, zz], dim=-1)], dim=-2)

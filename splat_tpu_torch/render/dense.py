@@ -39,6 +39,40 @@ def _splat_alpha(proj, idx, px, py, config: RenderConfig):
     return torch.where(keep, alpha, torch.zeros_like(alpha))
 
 
+def depth_order(proj) -> torch.Tensor:
+    """Front to back, ties by index; invisible splats sort last (their
+    alpha is 0 anyway)."""
+    key = torch.where(proj.visible, proj.depth,
+                      torch.full_like(proj.depth, float("inf")))
+    return torch.argsort(key, stable=True)
+
+
+def composite_rows(proj, order, row0: int, h: int, w: int,
+                   config: RenderConfig, chunk: int):
+    """Composite the gaussians ``order`` of ``proj`` front to back over the
+    image rows [row0, row0 + h), ``chunk`` at a time.  Returns the colour
+    before the background, (h, w, 3), and the transmittance, (h, w)."""
+    dev = proj.depth.device
+    py, px = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    py = py + float(row0)
+    img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    transmit = torch.ones((h, w), dtype=torch.float32, device=dev)
+    color_all = torch.clamp(proj.color, 0.0, 1.0)
+    for start in range(0, order.shape[0], chunk):
+        idx = order[start:start + chunk]
+        alpha = _splat_alpha(proj, idx, px, py, config)       # (K, H, W)
+        t_within = torch.cumprod(1.0 - alpha, dim=0)
+        t_before = torch.cat([torch.ones_like(t_within[:1]),
+                              t_within[:-1]], dim=0)
+        contrib = torch.einsum("khw,kc->hwc", alpha * t_before,
+                               color_all[idx])
+        img = img + transmit[..., None] * contrib
+        transmit = transmit * t_within[-1]
+    return img, transmit
+
+
 def render_dense(scene, camera, config: RenderConfig | None = None,
                  *, chunk: int = 16) -> torch.Tensor:
     """Render to float32 (H, W, 3) in [0, 1] — (H, W, 4) RGBA with
@@ -57,27 +91,8 @@ def render_dense(scene, camera, config: RenderConfig | None = None,
         return bgc.expand(h // ss, w // ss, bgc.shape[0]).clone()
     proj = project_gaussians(scene, camera, config)
 
-    # front to back; invisible splats sort last (their alpha is 0 anyway)
-    key = torch.where(proj.visible, proj.depth,
-                      torch.full_like(proj.depth, float("inf")))
-    order = torch.argsort(key, stable=True)
-
-    py, px = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
-                            torch.arange(w, dtype=torch.float32, device=dev),
-                            indexing="ij")
-    img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-    transmit = torch.ones((h, w), dtype=torch.float32, device=dev)
-    color_all = torch.clamp(proj.color, 0.0, 1.0)
-    for start in range(0, scene.num_gaussians, chunk):
-        idx = order[start:start + chunk]
-        alpha = _splat_alpha(proj, idx, px, py, config)       # (K, H, W)
-        t_within = torch.cumprod(1.0 - alpha, dim=0)
-        t_before = torch.cat([torch.ones_like(t_within[:1]),
-                              t_within[:-1]], dim=0)
-        contrib = torch.einsum("khw,kc->hwc", alpha * t_before,
-                               color_all[idx])
-        img = img + transmit[..., None] * contrib
-        transmit = transmit * t_within[-1]
+    img, transmit = composite_rows(proj, depth_order(proj), 0, h, w, config,
+                                   chunk)
     img = img + transmit[..., None] * bg
     if config.alpha_channel:
         img = torch.cat([img, 1.0 - transmit[..., None]], dim=-1)

@@ -55,11 +55,12 @@ from splat_tpu_torch.ops.projection import (ProjectedGaussians,
                                             project_gaussians)
 from splat_tpu_torch.render.binning import (FEATURE_DIM, TileBins,
                                             build_tile_bins)
-from splat_tpu_torch.render.kernels import _MAX_CHUNK, _PPT, THREADS, _untile
+from splat_tpu_torch.render.kernels import _ppt, _untile
 # the work list the kernels share with K2; the names stay importable here
 from splat_tpu_torch.render import plan
 from splat_tpu_torch.render.plan import (BLOCKS_PER_SM,  # noqa: F401
                                          SPLIT_BLOCKS, SPLIT_MIN_PAIRS,
+                                         THREADS,
                                          _block_work, _slots, _split,
                                          _tile_plan)
 from splat_tpu_torch.utils.image import box_downsample
@@ -236,16 +237,12 @@ def rasterize_train_fwd_plain(bins: TileBins, h: int, w: int,
 
 
 def _check_common(bins: TileBins, h: int, w: int, config: RenderConfig):
-    """Shapes and limits both training kernels need; returns PPT."""
+    """Shapes and limits both training kernels need; returns (PPT, blocks
+    per tile)."""
     dev = bins.features.device
     tw, th = config.tile_w, config.tile_h
     nt = bins.tiles_x * bins.tiles_y
-    ppt = next((q for q in _PPT if q * THREADS >= tw * th), None)
-    if ppt is None:
-        raise ValueError(f"tile of {tw * th} pixels exceeds the kernel's "
-                         f"{_PPT[-1] * THREADS}")
-    if not 1 <= config.chunk <= _MAX_CHUNK:
-        raise ValueError(f"chunk {config.chunk} outside [1, {_MAX_CHUNK}]")
+    launch = _ppt(config)
     if bins.tiles_x * tw < w or bins.tiles_y * th < h:
         raise ValueError("tile grid does not cover the image")
     feats = bins.features
@@ -257,7 +254,7 @@ def _check_common(bins: TileBins, h: int, w: int, config: RenderConfig):
     for name, t in (("tile_start", bins.tile_start),
                     ("tile_end", bins.tile_end)):
         _build.check_tensor(t, name, torch.int32, (nt,), dev)
-    return ppt
+    return launch
 
 
 def rasterize_train_fwd(bins: TileBins, h: int, w: int,
@@ -276,7 +273,7 @@ def rasterize_train_fwd(bins: TileBins, h: int, w: int,
                                          sat_cut_log=sat_cut_log)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_train_fwd: unsupported device {dev}")
-    ppt = _check_common(bins, h, w, config)
+    ppt, groups = _check_common(bins, h, w, config)
     nt = bins.tiles_x * bins.tiles_y
     c_img = torch.empty((h, w, 3), dtype=torch.float32, device=dev)
     lt_img = torch.empty((h, w), dtype=torch.float32, device=dev)
@@ -297,7 +294,7 @@ def rasterize_train_fwd(bins: TileBins, h: int, w: int,
                  config.alpha_clamp, config.alpha_min,
                  int(_log_cap(config) is not None), float(sat_cut_log),
                  int(config.train_sat_exit),
-                 int(math.isfinite(config.sigma_cutoff)), ppt,
+                 int(math.isfinite(config.sigma_cutoff)), ppt, groups,
                  plan._slots(dev), plan.SPLIT_MIN_PAIRS, stream)
     _build.check(err, "rasterize_train_fwd")
     rasterize_train_fwd.launches += 1
@@ -392,7 +389,7 @@ def rasterize_train_bwd(bins: TileBins, g_c, g_lt, lt, cut, h: int, w: int,
                                          config)
     if dev.type != "cuda":
         raise ValueError(f"rasterize_train_bwd: unsupported device {dev}")
-    ppt = _check_common(bins, h, w, config)
+    ppt, groups = _check_common(bins, h, w, config)
     nt = bins.tiles_x * bins.tiles_y
     _build.check_tensor(bins.ranks, "ranks", torch.int64, (feats.shape[1],),
                         dev)
@@ -418,7 +415,7 @@ def rasterize_train_bwd(bins: TileBins, g_c, g_lt, lt, cut, h: int, w: int,
                  config.tile_h, bins.tiles_x, nt, config.chunk,
                  config.alpha_clamp, config.alpha_min,
                  int(_log_cap(config) is not None),
-                 int(math.isfinite(config.sigma_cutoff)), ppt,
+                 int(math.isfinite(config.sigma_cutoff)), ppt, groups,
                  plan._slots(dev), plan.SPLIT_MIN_PAIRS, stream)
     _build.check(err, "rasterize_train_bwd")
     rasterize_train_bwd.launches += 1
@@ -500,6 +497,12 @@ def render_tiled_diff(scene, camera, config: RenderConfig | None = None, *,
     proj = project_gaussians(scene, camera.to(dev), config)
     c_raw, lt = core_from_proj(proj, camera.h, camera.w, config,
                                sat_cut_log=sat_cut_log)
+    return box_downsample(finish_image(c_raw, lt, config), ss)
+
+
+def finish_image(c_raw, lt, config: RenderConfig) -> torch.Tensor:
+    """The image from raw C and logT: clip(C + T * background), and the
+    coverage 1 - T with config.alpha_channel."""
     t_n = torch.exp(lt)
     # the background as scalars: a tensor copied to the card would
     # synchronise it once per view
@@ -508,5 +511,5 @@ def render_tiled_diff(scene, camera, config: RenderConfig | None = None, *,
     if config.alpha_channel:
         img = torch.cat([img, torch.clamp(1.0 - t_n, 0.0, 1.0)[..., None]],
                         dim=-1)
-    return box_downsample(img, ss)
+    return img
 

@@ -29,15 +29,26 @@ import math
 import torch
 
 from splat_tpu_torch import _build
-from splat_tpu_torch.config import RenderConfig
+from splat_tpu_torch.config import RenderConfig, check_kernel_limits
 from splat_tpu_torch.render.binning import FEATURE_DIM, TileBins
 from splat_tpu_torch.render import plan
 from splat_tpu_torch.render.plan import THREADS
 
-# pixels per thread the kernel is instantiated for (tile <= 16 * 256 px)
+# pixels per thread the kernels are instantiated for
 _PPT = (1, 2, 4, 8, 16)
-# the largest batch the kernels accept
-_MAX_CHUNK = (48 * 1024) // (4 * FEATURE_DIM)
+
+
+def _ppt(config: RenderConfig) -> tuple[int, int]:
+    """(pixels per thread, blocks per tile) for the config's tile: one
+    block for a tile of at most 16 x 256 pixels, else one block of 16 a
+    thread per pixel group (the limits RenderConfig enforces, checked again:
+    the kernels trust them)."""
+    check_kernel_limits(config.tile_w, config.tile_h, config.chunk)
+    p = config.tile_w * config.tile_h
+    groups = -(-p // (_PPT[-1] * THREADS))
+    if groups > 1:
+        return _PPT[-1], groups
+    return next(q for q in _PPT if q * THREADS >= p), 1
 
 
 def _untile(x, nty: int, ntx: int, th: int, tw: int, h: int, w: int):
@@ -139,13 +150,7 @@ def rasterize_tiles(bins: TileBins, h: int, w: int,
         raise ValueError(f"rasterize_tiles: unsupported device {dev}")
     tw, th = config.tile_w, config.tile_h
     nt = bins.tiles_x * bins.tiles_y
-    p = tw * th
-    ppt = next((q for q in _PPT if q * THREADS >= p), None)
-    if ppt is None:
-        raise ValueError(f"tile of {p} pixels exceeds the kernel's "
-                         f"{_PPT[-1] * THREADS}")
-    if not 1 <= config.chunk <= _MAX_CHUNK:
-        raise ValueError(f"chunk {config.chunk} outside [1, {_MAX_CHUNK}]")
+    ppt, groups = _ppt(config)
     if bins.tiles_x * tw < w or bins.tiles_y * th < h:
         raise ValueError("tile grid does not cover the image")
     if feats.dim() != 2 or feats.shape[1] >= 1 << 31:
@@ -172,7 +177,7 @@ def rasterize_tiles(bins: TileBins, h: int, w: int,
                  feats.data_ptr(), feats.shape[1], out.data_ptr(), h, w, tw,
                  th, bins.tiles_x, nt, config.chunk, config.alpha_clamp,
                  config.alpha_min, bg[0], bg[1], bg[2], nchan,
-                 int(math.isfinite(config.sigma_cutoff)), ppt,
+                 int(math.isfinite(config.sigma_cutoff)), ppt, groups,
                  plan._slots(dev), plan.SPLIT_MIN_PAIRS, stream)
     _build.check(err, "rasterize_tiles")
     rasterize_tiles.launches += 1

@@ -97,3 +97,39 @@ class GaussianScene:
         """The same scene with every tensor on ``device``."""
         return GaussianScene(**{k: getattr(self, k).to(device)
                                 for k in _FIELDS})
+
+    def pad_to(self, n: int) -> "GaussianScene":
+        """Pad with fully transparent degenerate gaussians up to ``n``
+        rows, as ``splat_tpu``'s ``pad_to``: means 1e8 (far behind any
+        plausible camera), identity quaternions, scales 1e-8, opacity 0,
+        SH 0.  Sharding over ``g`` ranks needs N divisible by g."""
+        cur = self.num_gaussians
+        if n < cur:
+            raise ValueError(f"pad_to({n}) smaller than current N={cur}")
+        if n == cur:
+            return self
+        pad = n - cur
+        kw = dict(dtype=torch.float32, device=self.device)
+        quat = torch.tensor([[1.0, 0.0, 0.0, 0.0]], **kw).expand(pad, 4)
+        return GaussianScene(
+            means=torch.cat([self.means, torch.full((pad, 3), 1e8, **kw)]),
+            quats=torch.cat([self.quats, quat]),
+            scales=torch.cat([self.scales, torch.full((pad, 3), 1e-8, **kw)]),
+            opacities=torch.cat([self.opacities, torch.zeros(pad, **kw)]),
+            sh=torch.cat([self.sh, torch.zeros((pad, 16, 3), **kw)]))
+
+    def slice(self, start: int, stop: int) -> "GaussianScene":
+        """Rows [start, stop) of every field (views, not copies)."""
+        return GaussianScene(**{k: getattr(self, k)[start:stop]
+                                for k in _FIELDS})
+
+    def permuted(self, seed: int = 0) -> "GaussianScene":
+        """The gaussians in a random order: the permutation of
+        ``np.random.default_rng(seed)``, so ``splat_tpu``'s ``permuted``
+        gives the same order.  Rendering does not depend on the order, but
+        the a2a slab routing's per-(source, destination) capacity assumes
+        contiguous shards that are spatially uncorrelated, which a scene
+        stored in spatial order breaks."""
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+            self.num_gaussians)).to(self.device)
+        return GaussianScene(**{k: getattr(self, k)[perm] for k in _FIELDS})

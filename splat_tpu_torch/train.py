@@ -14,7 +14,10 @@
 
 ``splat_tpu`` batches the views on a leading axis and scans jitted
 segments; the port loops over a list of cameras and over steps in Python.
-Multi-device training (``mesh=``) is not ported.
+Multi-device training (``mesh=``) runs one process per rank over
+``torch.distributed``: data-parallel (views over the mesh axis "d") and
+tensor-parallel (parameters, gradients and Adam moments over "g"; see
+``splat_tpu_torch.parallel.sharding.render_slab_tiled_diff``).
 """
 
 from __future__ import annotations
@@ -179,12 +182,17 @@ def photometric_loss(raw: RawParams, cameras, targets, config: RenderConfig,
             img = render_tiled_diff(scene, camera, config)
         else:
             img = render_dense(scene, camera, config, chunk=chunk)
-        err = img - target
-        loss = torch.mean(err * err) + l1_weight * torch.mean(torch.abs(err))
-        if dssim_weight:
-            loss = loss + dssim_weight * (1.0 - ssim(img, target))
-        losses.append(loss)
+        losses.append(_view_loss(img, target, l1_weight, dssim_weight))
     return torch.stack(losses).mean()
+
+
+def _view_loss(img, target, l1_weight: float, dssim_weight: float):
+    """One view's L2 + l1_weight L1 (+ dssim_weight (1 - SSIM))."""
+    err = img - target
+    loss = torch.mean(err * err) + l1_weight * torch.mean(torch.abs(err))
+    if dssim_weight:
+        loss = loss + dssim_weight * (1.0 - ssim(img, target))
+    return loss
 
 
 # Per-leaf learning-rate scale relative to the base lr.
@@ -198,26 +206,25 @@ DEFAULT_LR_SCALES = {
 
 
 @torch.no_grad()
-def _slot_demand(scene: GaussianScene, cameras,
-                 config: RenderConfig) -> torch.Tensor:
-    """Worst pair count over the views, as a device scalar (no sync).
-    The port's slot demand is its pair count: it has no sentinel slots."""
+def _view_pairs(scene: GaussianScene, cameras,
+                config: RenderConfig) -> torch.Tensor:
+    """(V,) int64 pair count of each view, on the device (no sync).  The
+    port's slot demand is its pair count: it has no sentinel slots."""
     ss = config.supersample
-    worst = torch.zeros((), dtype=torch.int64, device=scene.device)
+    pairs = []
     for cam in cameras:
         if ss > 1:
             cam = cam.scaled(ss)
-        _, pairs = count_pairs(project_gaussians(scene, cam, config),
-                               cam.h, cam.w, config)
-        worst = torch.maximum(worst, pairs)
-    return worst
+        pairs.append(count_pairs(project_gaussians(scene, cam, config),
+                                 cam.h, cam.w, config)[1])
+    return torch.stack(pairs)
 
 
 def _required_dup_factor(scene: GaussianScene, cameras,
                          config: RenderConfig) -> float:
     """max_dup_factor the views need, +5% for footprint drift."""
     n = max(scene.num_gaussians, 1)
-    return int(_slot_demand(scene, cameras, config)) * 1.05 / n
+    return int(_view_pairs(scene, cameras, config).max()) * 1.05 / n
 
 
 def _check_tiled_capacity(scene: GaussianScene, cameras,
@@ -357,6 +364,57 @@ class _Adam:
         return mu_hat / (torch.sqrt(nu_hat) + self.EPS)
 
 
+class _Mesh:
+    """What fit needs of a (d, g) mesh: this rank's views and the
+    collectives of the data- (d) and tensor-parallel (g) axes.  Every rank
+    runs fit with the same arguments and makes the same collective calls
+    in the same order."""
+
+    def __init__(self, mesh, cameras, targets, tp: bool):
+        from splat_tpu_torch.parallel import sharding
+
+        self.mesh, self.tp = mesh, tp
+        self.d_group, self.n_d, d = sharding._axis(mesh, "d")
+        self.g_group, self.n_g, _ = sharding._axis(mesh, "g")
+        self.cameras = sharding._local_frames(cameras, mesh)
+        f = len(self.cameras)
+        self.targets = targets[d * f:(d + 1) * f]
+        self.shard = lambda x: sharding.shard_scene(x, mesh)
+
+    def average(self, grads: list, loss: torch.Tensor):
+        """Gradients and loss averaged over 'd', in one all_reduce."""
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.detach().reshape(1)])
+        torch.distributed.all_reduce(flat, op=torch.distributed.ReduceOp.AVG,
+                                     group=self.d_group)
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        return out, flat[-1]
+
+    def demand(self, pairs: list) -> torch.Tensor:
+        """The segment's peak pair demand from each step's (V_local,)
+        pairs of this rank's views: summed over the shards on 'g' (TP),
+        then the max over steps, views and 'd'."""
+        dist = torch.distributed
+        per_view = torch.stack(pairs)                     # (steps, V_local)
+        if self.tp:
+            dist.all_reduce(per_view, group=self.g_group)
+        peak = per_view.max()
+        dist.all_reduce(peak, op=dist.ReduceOp.MAX, group=self.d_group)
+        return peak
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The shards of a per-gaussian tensor over 'g', whole."""
+        from splat_tpu_torch.parallel.sharding import _all_gather
+        return _all_gather(x, self.g_group) if self.tp else x
+
+    def whole(self, raw: RawParams) -> RawParams:
+        return RawParams(**{k: self.gather(getattr(raw, k))
+                            for k in RAW_FIELDS})
+
+
 def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
         lr: float = 1e-2, lr_scales: dict | None = None,
         lr_decay: dict | None = None, config: RenderConfig | None = None,
@@ -383,10 +441,22 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
     came within 5% of the capacity, raises ``max_dup_factor`` (with a
     warning when pairs were dropped): never a silent truncation.
     ``progress_cb(step, loss, num_gaussians)`` runs after each segment.
+
+    ``mesh``: a (d, g) mesh from ``parallel.make_mesh``, with every rank
+    calling fit with the same whole scene, cameras and targets (ignored
+    with ``loss_fn``, as in ``splat_tpu``).  The views split contiguously
+    over 'd' (V divisible by its size); each rank takes the mean loss of
+    its views, and gradients and the reported loss are averaged over 'd'
+    (data parallel).  With ``method="tiled"`` it is also tensor parallel
+    over 'g': parameters, gradients and Adam moments are sharded over 'g'
+    (N divisible by its size, and densification's ``pad_multiple`` too),
+    each view rendered by ``render_slab_tiled_diff``; densification
+    gathers the shards, runs on every rank alike and shards the result
+    again.  With one rank on 'g' its collectives are copies, and the only
+    tiled fit it cannot take, supersampling, renders each rank's views
+    whole as ``splat_tpu``'s data-parallel path does.  Every rank returns
+    the whole fitted scene.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit(mesh=...): multi-device training is not ported")
     config = config or RenderConfig()
     scales = dict(DEFAULT_LR_SCALES)
     for name, d in (("lr_scales", lr_scales), ("lr_decay", lr_decay)):
@@ -408,17 +478,59 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
     raw = RawParams.from_scene(scene)
     tiled = loss_fn is None and method == "tiled"
 
+    par = None
+    if mesh is not None and loss_fn is None:
+        from splat_tpu_torch.parallel.sharding import _axis, _check_device
+        _check_device(mesh, scene.means)
+        par = _Mesh(mesh, cameras, targets, tp=tiled and (
+            _axis(mesh, "g")[1] > 1 or config.supersample == 1))
+    tp_g = par.n_g if par is not None and par.tp else 1
+
+    def check_tp_divisibility(n: int) -> None:
+        if tp_g > 1 and n % tp_g:
+            raise ValueError(
+                f"TP training shards the {n} gaussians over the mesh 'g' "
+                f"axis ({tp_g}): N must be divisible (pad the scene, or set "
+                f"densify pad_multiple to a multiple of {tp_g})")
+
+    check_tp_divisibility(raw.num_gaussians)
+    if tp_g > 1 and densify_every:
+        pm = (densify_kwargs or {}).get("pad_multiple", 256)
+        if pm % tp_g:
+            raise ValueError(
+                f"TP training with densification needs densify "
+                f"pad_multiple ({pm}) divisible by the 'g' axis ({tp_g}) so "
+                f"every topology keeps N % g == 0")
+
     def loss_for_degree(deg: int):
         if loss_fn is not None:
             return loss_fn
         cfg = dataclasses.replace(config, sh_degree=deg)
-        return lambda r: photometric_loss(r, cameras, targets, cfg,
-                                          l1_weight, chunk,
-                                          dssim_weight=dssim_weight,
-                                          method=method)
+        if par is None:
+            return lambda r: photometric_loss(r, cameras, targets, cfg,
+                                              l1_weight, chunk,
+                                              dssim_weight=dssim_weight,
+                                              method=method)
+        if not par.tp:
+            return lambda r: photometric_loss(r, par.cameras, par.targets,
+                                              cfg, l1_weight, chunk,
+                                              dssim_weight=dssim_weight,
+                                              method=method)
+        from splat_tpu_torch.parallel.sharding import render_slab_tiled_diff
+
+        def tp_loss(r):
+            scene_l = r.to_scene()
+            return torch.stack([
+                _view_loss(render_slab_tiled_diff(scene_l, c, cfg, par.mesh),
+                           t, l1_weight, dssim_weight)
+                for c, t in zip(par.cameras, par.targets)]).mean()
+        return tp_loss
 
     if tiled:
         _check_tiled_capacity(scene, cameras, config)
+    if par is not None and par.tp:
+        raw = par.shard(raw)
+    n_total = raw.num_gaussians * tp_g
 
     bounds: set[int] = set()
     for k in (densify_every, opacity_reset_every):
@@ -462,10 +574,11 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
     all_losses: list[torch.Tensor] = []
     densify_log = []
     gsum_acc, gsteps = None, 0
+    demand_cams = par.cameras if par is not None else cameras
     for b0, b1 in zip(edges[:-1], edges[1:]):
         seg_loss = loss_for_degree(degree_at(b0))
         gsum = torch.zeros(raw.num_gaussians, dtype=torch.float32, device=dev)
-        dmax = torch.zeros((), dtype=torch.int64, device=dev)
+        pairs = []
         for gstep in range(b0, b1):
             leaves = {k: getattr(raw, k).detach().requires_grad_(True)
                       for k in RAW_FIELDS}
@@ -474,13 +587,14 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
             loss.backward()
             if tiled:
                 # demand of the state the gradient was computed at
-                dmax = torch.maximum(dmax, _slot_demand(
-                    cur.to_scene(), cameras, config))
+                pairs.append(_view_pairs(cur.to_scene(), demand_cams,
+                                         config))
+            grads = [leaves[k].grad if leaves[k].grad is not None
+                     else torch.zeros_like(leaves[k]) for k in RAW_FIELDS]
+            if par is not None:
+                grads, loss = par.average(grads, loss)
             new = {}
-            for k in RAW_FIELDS:
-                g = leaves[k].grad
-                if g is None:
-                    g = torch.zeros_like(leaves[k])
+            for k, g in zip(RAW_FIELDS, grads):
                 if k == "means":
                     gsum = gsum + torch.linalg.vector_norm(g, dim=1)
                 new[k] = (leaves[k].detach()
@@ -490,21 +604,30 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
         gsum_acc = gsum if gsum_acc is None else gsum_acc + gsum
         gsteps += b1 - b0
         if progress_cb is not None:
-            progress_cb(b1, float(all_losses[-1]), raw.num_gaussians)
+            progress_cb(b1, float(all_losses[-1]), n_total)
         if tiled:
-            capacity_margin_check(int(dmax), raw.num_gaussians)
+            dmax = (par.demand(pairs) if par is not None
+                    else torch.stack(pairs).max())
+            capacity_margin_check(int(dmax), n_total)
         if b1 == steps:
             break
         if densify_every and b1 % densify_every == 0:
-            raw, stats = densify_and_prune(raw, gsum_acc / gsteps,
-                                           **(densify_kwargs or {}))
+            whole = par.whole(raw) if par is not None else raw
+            grad_mean = gsum_acc / gsteps
+            if par is not None:
+                grad_mean = par.gather(grad_mean)
+            whole, stats = densify_and_prune(whole, grad_mean,
+                                             **(densify_kwargs or {}))
             densify_log.append(stats)
+            check_tp_divisibility(whole.num_gaussians)
+            raw = par.shard(whole) if par is not None and par.tp else whole
+            n_total = whole.num_gaussians
             adam = _Adam(raw)           # topology changed
             gsum_acc, gsteps = None, 0
             if tiled:
                 # pruning shrinks k_cap while the survivors keep their
                 # footprints: re-audit and raise instead of truncating
-                need = _required_dup_factor(raw.to_scene(), cameras,
+                need = _required_dup_factor(whole.to_scene(), cameras,
                                             config)
                 if config.max_dup_factor < need:
                     new_dup = math.ceil(need * 20) / 20
@@ -522,6 +645,8 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
                 raw.logit_opacities, max=float(np.float32(cap))))
             adam.state["logit_opacities"] = _Adam.fresh(raw.logit_opacities)
 
+    if par is not None:
+        raw = par.whole(raw)
     losses = torch.stack(all_losses)
     return FitResult(scene=raw.to_scene(), raw=raw, losses=losses,
                      final_loss=float(losses[-1]),

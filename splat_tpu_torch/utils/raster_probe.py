@@ -276,6 +276,11 @@ _VARIANTS = (
     ("release_acquire_votes", {
         "st.relaxed.cluster.b32": "st.release.cluster.b32",
         "ld.relaxed.cluster.b32": "ld.acquire.cluster.b32"}),
+    # each batch staged in one part (right for chunk <= STAGE_PAIRS): what
+    # the loop over a batch's parts costs
+    ("one_stage_part", {
+        "#pragma unroll 1\n    for (int k0 = max(s, kb); k0 < b_end; "
+        "k0 += STAGE_PAIRS) {": "    {\n      const int k0 = max(s, kb);"}),
 )
 
 

@@ -562,6 +562,11 @@ _VARIANTS = (
     ("fwd_4_blocks", {"__global__ void __launch_bounds__(THREADS) "
                       "train_fwd_kernel(": "__global__ void "
                       "__launch_bounds__(THREADS, 4) train_fwd_kernel("}),
+    # each window staged in one part (right for chunk <= STAGE_PAIRS): what
+    # the loop over a window's parts costs
+    ("one_stage_part", {
+        "#pragma unroll 1\n    for (int k0 = max(s, kb); k0 < w_end; "
+        "k0 += STAGE_PAIRS) {": "    {\n      const int k0 = max(s, kb);"}),
 )
 
 

@@ -15,7 +15,7 @@ import torch
 
 import splat_tpu_torch as stt
 from splat_tpu_torch.ops.projection import project_gaussians
-from splat_tpu_torch.render import binning, emulate, plan
+from splat_tpu_torch.render import binning, emulate, kernels, plan
 from splat_tpu_torch.render.expand import (expand_pair_keys,
                                            expand_pair_keys_plain)
 from splat_tpu_torch.render.diff import (SPLIT_MIN_PAIRS, _walk_end,
@@ -63,8 +63,12 @@ def test_expand_kernel_equals_plain(dev, dup):
     dict(tile_px=32, tile_py=16, sigma_cutoff=math.inf),
     dict(tile_px=64, chunk=256),
     dict(tile_px=48, tile_py=40, chunk=32),
-    dict(chunk=1100),        # a batch above 48 KB of shared memory
-], ids=["default", "t16_rgba", "t32x16_inf", "t64", "t48x40", "chunk1100"])
+    dict(chunk=1100),        # a batch staged in two parts
+    dict(tile_px=64, tile_py=128),   # 8192 px: a cluster of 2 blocks a tile
+    dict(tile_px=128, chunk=64, alpha_channel=True),  # 4 blocks a tile
+    dict(chunk=2500),        # a batch staged in three parts
+], ids=["default", "t16_rgba", "t32x16_inf", "t64", "t48x40", "chunk1100",
+        "t64x128", "t128_rgba", "chunk2500"])
 def test_raster_kernel_equals_plain(dev, cfg_kw):
     cfg = stt.RenderConfig(**cfg_kw)
     h, w = 200, 300
@@ -243,6 +247,28 @@ def test_render_on_card_matches_dense_and_cpu(dev):
     assert stt.psnr(img, cpu) >= 60.0
 
 
+def test_slab_split_render_on_card_matches_render_tiled(dev):
+    """K1 and K2 on the row slabs of a 4-way split (the tiled sharded
+    render's slabs, 120 / 4 = 30 rows: the last tile row of each slab is
+    partial), stitched, against one render_tiled: the limits of
+    test_sharding.py for a slab-split render."""
+    from splat_tpu_torch.parallel.sharding import render_slab_tiled
+    cfg = stt.RenderConfig()
+    scene = stt.surface_scene(8000, seed=2, device=dev)
+    cam = stt.Camera.create(h=120, w=160, position=(0.0, -1.0, 4.0),
+                            pitch=0.2, device=dev)
+    proj = project_gaussians(scene, cam, cfg)
+    k1, k2 = expand_pair_keys.launches, rasterize_tiles.launches
+    slabs = [render_slab_tiled(proj, g * 30, 30, 160, cfg) for g in range(4)]
+    assert expand_pair_keys.launches == k1 + 4
+    assert rasterize_tiles.launches == k2 + 4
+    assert all(int(ov) == 0 for _, ov in slabs)
+    got = torch.cat([img for img, _ in slabs])
+    want = stt.render_tiled(scene, cam, cfg)
+    assert stt.psnr(got, want) >= 55.0
+    assert float(((got - want).abs() > 1e-6).float().mean()) < 0.002
+
+
 # K4's per-gaussian sums: atomics add the tiles' pair sums in a run-
 # dependent order, and the pixel sums run in another order than torch's.
 K4_REL_TOL = 1e-4      # per field, of the field's max |g|
@@ -262,6 +288,18 @@ _TRAIN_CASES = {
     "sat_exit_split": (dict(train_sat_exit=True), "deep"),
     "clamp1_sigma_inf_split": (dict(alpha_clamp=1.0, sigma_cutoff=math.inf),
                                "stacked"),
+    # tiles of several pixel groups (K3's a voting cluster: these tiles
+    # do not saturate, so no cut engages), and windows staged in parts
+    "groups_t64x128": (dict(tile_px=64, tile_py=128), "deep"),
+    "groups_t128_sat_exit": (dict(train_sat_exit=True, tile_px=128), "deep"),
+    # ... and saturating: the frame's wholly inside tiles (4 of 64x128, 2
+    # of 128x128) end their walks by the cluster's vote
+    "deep_exact_cut_groups_t64x128": (dict(tile_px=64, tile_py=128),
+                                      "wall"),
+    "deep_exact_cut_groups_t128": (dict(tile_px=128), "wall"),
+    "sat_exit_groups_t128": (dict(train_sat_exit=True, tile_px=128),
+                             "wall"),
+    "deep_exact_cut_chunk2048": (dict(chunk=2048), "deep"),
 }
 
 
@@ -276,6 +314,18 @@ def _train_frame(dev, case, h=200, w=300):
                                      scale_range=(0.05, 0.2), device=dev)
             scene = dataclasses.replace(
                 scene, opacities=torch.full_like(scene.opacities, 0.995))
+        elif kind == "wall":  # large opaque splats filling the frame,
+            n = 40000         # deep enough for the exact cut everywhere
+            scene = stt.random_scene(n, seed=4, scale_range=(0.2, 0.4),
+                                     device=dev)
+            rng = np.random.default_rng(4)
+            means = np.stack([rng.uniform(-7.0, 7.0, n),
+                              rng.uniform(-5.0, 5.0, n),
+                              rng.uniform(-0.3, 0.3, n)], axis=1)
+            scene = dataclasses.replace(
+                scene, means=torch.tensor(means, dtype=torch.float32,
+                                          device=dev),
+                opacities=torch.full_like(scene.opacities, 0.995))
         else:                # small splats stacked over a few tiles
             scene = stt.random_scene(8000, seed=4, extent=0.4,
                                      scale_range=(0.005, 0.03), device=dev)
@@ -308,6 +358,8 @@ def test_train_kernels_equal_plain(dev, case):
     engaged = cut.long() < nch
     if case.startswith(("deep_exact_cut", "sat_exit")):
         assert bool(engaged.any())                  # the cut engaged
+    if "_groups_" in case:                          # ... by a cluster's vote
+        assert kernels._ppt(cfg)[1] > 1
     if split and case.startswith(("deep_exact_cut", "sat_exit")):
         assert bool((engaged & (pairs > SPLIT_MIN_PAIRS)).any())
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -320,14 +372,15 @@ def test_train_kernels_equal_plain(dev, case):
     if split:    # K4 split at least one tile
         assert int(rasterize_train_bwd.split_tiles) > 0
     # both work lists split the tiles their plain version splits: K3's goes
-    # by the pairs held, K4's by what the cut left of each walk
-    ppt = next(q for q in (1, 2, 4, 8, 16)
-               if q * plan.THREADS >= cfg.tile_w * cfg.tile_h)
+    # by the pairs held, K4's by what the cut left of each walk (a tile of
+    # several pixel groups is never split further)
+    ppt, groups = kernels._ppt(cfg)
     left = _walk_end(bins, cfg.chunk, cut) - bins.tile_start
     for fn, walk in ((rasterize_train_fwd, pairs),
                      (rasterize_train_bwd, left)):
         assert int(fn.split_tiles) == int(plan._tile_plan(
-            walk, plan._split(ppt), plan._slots(dev))[1])
+            walk, plan._split(ppt) if groups == 1 else 1,
+            plan._slots(dev))[1])
     assert bool(torch.isfinite(g).all())
     for q in range(g.shape[1]):
         scale = float(g_p[:, q].abs().max()) + 1e-30

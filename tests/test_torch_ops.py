@@ -93,6 +93,112 @@ def test_config_mirrors_reference_validation():
             stt.RenderConfig(**kw)
 
 
+@pytest.mark.parametrize("tile_px, tile_py, chunk, ok", [
+    (32, 0, 128, True), (64, 0, 256, True), (64, 128, 128, True),
+    (128, 0, 2048, True), (256, 128, 128, True), (256, 0, 128, False),
+    (512, 128, 64, False), (16, 8, 0, False)])
+def test_config_kernel_limits_agree(tile_px, tile_py, chunk, ok):
+    """One rule for tile size and chunk on every device: the config the
+    card's wrappers would refuse fails at construction, on the CPU too.
+    splat_tpu accepts the larger tiles (a documented difference)."""
+    from splat_tpu_torch.config import check_kernel_limits
+    from splat_tpu_torch.render import kernels
+    kw = dict(tile_px=tile_px, tile_py=tile_py, chunk=chunk)
+    tw, th = tile_px, tile_py or tile_px
+    if ok:
+        check_kernel_limits(tw, th, chunk)
+        cfg = stt.RenderConfig(**kw)
+        # the launch the card's wrappers make: pixels a thread, blocks a
+        # tile (several only at 16 a thread, at most a cluster of 8)
+        ppt, groups = kernels._ppt(cfg)
+        assert ppt * 256 * groups >= tw * th
+        assert groups <= 8 and (groups == 1 or (ppt == 16 and tw * th > 4096))
+        return
+    with pytest.raises(ValueError):
+        check_kernel_limits(tw, th, chunk)
+    with pytest.raises(ValueError):
+        stt.RenderConfig(**kw)
+    if chunk >= 1:
+        st.RenderConfig(**kw)
+
+
+def _op_inputs(n=64, seed=4):
+    rng = np.random.default_rng(seed)
+    quats = rng.normal(size=(n, 4)).astype(np.float32)
+    scales = rng.uniform(0.01, 0.3, (n, 3)).astype(np.float32)
+    means = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    sh = rng.normal(0.0, 0.5, (n, 16, 3)).astype(np.float32)
+    dirs = rng.normal(size=(n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    return dict(quats=quats, scales=scales, means=means, sh=sh, dirs=dirs,
+                rgb=rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32))
+
+
+def _op_pairs():
+    """(name, JAX call, port call) on the dict of numpy inputs."""
+    from splat_tpu.ops import projection as jp, sh as jsh, transforms as jt
+    from splat_tpu_torch.ops import (projection as tp, sh as tsh,
+                                     transforms as tt)
+    t = torch.from_numpy
+    jcam, tcam = _cams(h=64, w=96, position=(0.2, -0.3, 3.0), yaw=0.4)
+    jview, tview = jcam.view_matrix(), tcam.view_matrix()
+    f = 80.0
+    pairs = [(f"eval_sh_deg{d}",
+              lambda i, d=d: jsh.eval_sh(i["sh"], i["dirs"], d),
+              lambda i, d=d: tsh.eval_sh(t(i["sh"]), t(i["dirs"]), d))
+             for d in range(4)]
+    pairs += [
+        ("rgb_to_dc", lambda i: jsh.rgb_to_dc(i["rgb"]),
+         lambda i: tsh.rgb_to_dc(t(i["rgb"]))),
+        ("compute_cov3d", lambda i: jt.compute_cov3d(i["quats"], i["scales"]),
+         lambda i: tt.compute_cov3d(t(i["quats"]), t(i["scales"]))),
+        ("compute_cov3d_packed",
+         lambda i: jt.compute_cov3d_packed(i["quats"], i["scales"]),
+         lambda i: tt.compute_cov3d_packed(t(i["quats"]), t(i["scales"]))),
+        ("pack_unpack", lambda i: jt.pack_cov3d(jt.unpack_cov3d(
+            jt.compute_cov3d_packed(i["quats"], i["scales"]))),
+         lambda i: tt.pack_cov3d(tt.unpack_cov3d(
+             tt.compute_cov3d_packed(t(i["quats"]), t(i["scales"]))))),
+        ("ewa_project", lambda i: jp.ewa_project(
+            i["means"], jt.compute_cov3d(i["quats"], i["scales"]), jview,
+            1.0, 1.0, f, 0.3),
+         lambda i: tp.ewa_project(
+             t(i["means"]), tt.compute_cov3d(t(i["quats"]), t(i["scales"])),
+             tview, 1.0, 1.0, f, 0.3)),
+        ("ewa_project_packed", lambda i: jp.ewa_project_packed(
+            i["means"], jt.compute_cov3d_packed(i["quats"], i["scales"]),
+            jview, f, 0.3),
+         lambda i: tp.ewa_project_packed(
+             t(i["means"]), tt.compute_cov3d_packed(t(i["quats"]),
+                                                    t(i["scales"])),
+             tview, f, 0.3)),
+    ]
+    return pairs
+
+
+@pytest.mark.parametrize("idx", range(10))
+def test_per_gaussian_ops_match_jax(idx):
+    """The public per-gaussian ops against splat_tpu's on seeded inputs:
+    the same f32 formulas in another order, rtol 1e-5 (atol 1e-6 where a
+    term cancels to ~0)."""
+    name, jfn, tfn = _op_pairs()[idx]
+    inputs = _op_inputs(seed=idx)
+    want = jfn(inputs)
+    got = tfn(inputs)
+    if not isinstance(want, tuple):
+        want, got = (want,), (got,)
+    for w, g in zip(want, got):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+
+
+def test_fit_result_exported():
+    assert stt.FitResult is stt.train.FitResult
+    assert "FitResult" in stt.__all__
+
+
 _PROJ_CASES = {
     "naive": (lambda m: m.naive_gaussians(),
               dict(h=144, w=256, position=DEMO_POS), {}),

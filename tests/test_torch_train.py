@@ -239,8 +239,8 @@ def test_fit_rejects(problem, bad):
     err = ValueError
     if bad == "capacity":       # a truncated forward is never silent
         kw["config"] = stt.RenderConfig(max_dup_factor=0.5)
-    elif bad == "mesh":
-        kw["mesh"], err = object(), NotImplementedError
+    elif bad == "mesh":         # not a (d, g) mesh from make_mesh
+        kw["mesh"] = object()
     elif bad == "lr_key":
         kw["lr_scales"] = {"mean": 1.0}
     else:
