@@ -71,6 +71,19 @@ Phases (any failure raises and exits non-zero):
      and of ``render_tiled`` on the same frames, ms per step of each fit,
      the stitched slabs' PSNR and the launch counts (what the collective
      layer costs at world size 1; no multi-GPU time).
+  10. the two knobs at the 1M random and surface frames @1920x1080:
+     ``cull_pairs``: K1's cull equal to its plain version (keys and owners),
+     pairs culled, num_pairs the pairs kept, overflow 0, the image within
+     alpha_min of the no-cull one and equal on tiles walked to their end;
+     ``subtile_exit``: K2's grouped walk within K2_TOL of its plain version,
+     its image within SUBTILE_ATOL of the whole-tile one, and at the
+     surface frame the heaviest tile on the grouped walk with groups that
+     stop apart.  Then, each counted from 0 and held to exactly one K1 and
+     one K2 launch a render with its knob's variant: ``stt.render`` with
+     each knob (equal bit for bit to ``rasterize_tiles`` on the same bins
+     and to ``render_tiled``), ``render_tiled`` with both, a 2-way slab
+     split with both (within alpha_min of it), and yaw sweeps of each
+     setting in turns.  Prints a ``{"knobs": ...}`` JSON line.
 The second-to-last line is a JSON object describing each kernel, with its
 bound (the least time the card could take for its work on these inputs:
 bytes over the memory rate, FP32 operations over the FP32 rate, or
@@ -122,6 +135,10 @@ PARALLEL_FRAMES = 8
 # single-device runs of the same 3 steps differed by 9.66e-6 relative,
 # and the mesh's history equalled one of them exactly: PERF.md, section 5)
 FIT_LOSS_RTOL = 1e-5
+# phase 10: the subtile_exit image against the whole-tile one, at the
+# tolerance tests/test_tiled.py holds splat_tpu's to (a group stops only
+# once its pixels have T < alpha_min / 4096, so it leaves out less)
+SUBTILE_ATOL = 1e-6
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # HBM bytes per second, and FP32 operations per second outside the tensor
 # cores.
@@ -291,14 +308,17 @@ def check_raster(bins, h, w, cfg, plain_reps: int) -> dict:
     return rec
 
 
-def walk_work(bins, h, w, cfg, n):
+def walk_work(bins, h, w, cfg, n, group_n=None):
     """What a walk of the first ``n[t]`` pairs of every tile t must
     compute, from the plain version's alpha on the same pairs: the pairs
     walked, and the (pixel, pair) evaluations in the pair's box and the
     kept ones, over every tile pixel (K2, K3) and over the pixels inside
-    the image (K4)."""
+    the image (K4).  With ``group_n`` ((T, G) pairs walked by each 8 x 16
+    pixel group, subtile_exit), a pixel counts only the first
+    ``group_n[t, g]`` pairs of its tile, and ``n`` is their maximum."""
     import torch
     from splat_tpu_torch.render import diff
+    from splat_tpu_torch.render.kernels import GROUP_H, GROUP_W
 
     dev = bins.features.device
     s = bins.tile_start.long()
@@ -310,6 +330,10 @@ def walk_work(bins, h, w, cfg, n):
     inside = diff._tile_pixels(torch.ones((h, w, 1), dtype=torch.bool,
                                           device=dev), bins, cfg)[..., 0]
     use_bbox = math.isfinite(cfg.sigma_cutoff)
+    if group_n is not None:
+        lin = torch.arange(cfg.tile_w * cfg.tile_h, device=dev)
+        gid = ((lin // cfg.tile_w // GROUP_H) * (cfg.tile_w // GROUP_W)
+               + (lin % cfg.tile_w) // GROUP_W)
     counts = torch.zeros(4, dtype=torch.int64, device=dev)
     step = max(1, (1 << 25) // pxf.shape[1])
     for i in range(0, total, step):
@@ -320,6 +344,9 @@ def walk_work(bins, h, w, cfg, n):
                                                     use_bbox)
         box = ((dx2 <= f[9]) & (dy2 <= f[10]) if use_bbox
                else torch.ones_like(keep))
+        if group_n is not None:     # the pixel's group still walks
+            live = (kk - s[tt])[:, None] < group_n[tt][:, gid]
+            box, keep = box & live, keep & live
         ins = inside[tt]
         counts += torch.stack([box.sum(), keep.sum(), (box & ins).sum(),
                                (keep & ins).sum()])
@@ -1052,6 +1079,244 @@ def parallel_path(device, kernels) -> dict:
     return res
 
 
+def knob_path(device, kernels) -> tuple[dict, dict, dict]:
+    """Phase 10: cull_pairs (K1's cull) and subtile_exit (K2's per-group
+    exit) at the 1M random and surface frames @1920x1080.  Returns the
+    kernel records of the two variants and the phase's figures."""
+    import torch
+    import splat_tpu_torch as stt
+    from splat_tpu_torch.ops.projection import project_gaussians
+    from splat_tpu_torch.parallel import sharding
+    from splat_tpu_torch.render import binning
+    from splat_tpu_torch.render.expand import expand_pair_keys_plain
+    from splat_tpu_torch.render.kernels import (rasterize_tiles,
+                                                rasterize_tiles_plain)
+    from splat_tpu_torch.utils.benchmark import chained_bench
+
+    expand, raster = kernels[:2]
+    cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
+    recs: dict = {}
+    figures: dict = {}
+    for kind in ("random", "surface"):
+        scene, dup = bench_scene(kind, N_BIG, device)
+        cfg = stt.RenderConfig(max_dup_factor=dup)
+        cfg_c = dataclasses.replace(cfg, cull_pairs=True)
+        cfg_s = dataclasses.replace(cfg, subtile_exit=True)
+        proj = project_gaussians(scene, cam, cfg)
+        fig: dict = {}
+
+        # ---- K1 with the cull against its plain version, exactly
+        lay_c = binning.slot_layout(proj, H, W, cfg_c)
+        lay = dataclasses.replace(lay_c, cull=None)
+        keys, owners = lay_c.expand()
+        keys_p, owners_p = lay_c.expand(expand_pair_keys_plain)
+        keys0, _ = lay.expand()
+        torch.cuda.synchronize()
+        require(torch.equal(keys, keys_p) and torch.equal(owners, owners_p),
+                f"{kind}: K1 cull differs from its plain version")
+        sentinel = (lay.tiles_x * lay.tiles_y) << 32
+        kept = int((keys != sentinel).sum())
+        culled = int(((keys == sentinel) & (keys0 != sentinel)).sum())
+        pairs = int((keys0 != sentinel).sum())
+        require(kept + culled == pairs and culled > 0,
+                f"{kind}: cull kept {kept}, culled {culled} of {pairs}")
+        bins_c = binning.build_tile_bins(proj, H, W, cfg_c)
+        require(int(bins_c.num_pairs) == kept and int(bins_c.overflow) == 0,
+                f"{kind}: num_pairs {int(bins_c.num_pairs)} != kept {kept}")
+        k1_ms, k1_off_ms = cuda_ms(lay_c.expand, 20), cuda_ms(lay.expand, 20)
+        k1_plain = cuda_ms(lambda: lay_c.expand(expand_pair_keys_plain), 5)
+        n = lay.first_slot.shape[0]
+        # K1's bytes plus the (N, 4) f32 cull rows; ~12 FP32 operations a
+        # filled slot for the cull's test
+        k1 = kernel_record("expand_pair_keys_cull",
+                           "splat_tpu_torch/csrc/expand.cu",
+                           "splat_tpu/render/expand.py:85",
+                           float((keys - keys_p).abs().max()), k1_ms,
+                           k1_plain, 40 * n + 8 + 16 * lay.k_cap, 12 * pairs)
+        fig.update(k1_cull_ms=k1_ms, k1_ms=k1_off_ms, pairs=pairs,
+                   pairs_kept=kept, pairs_culled=culled)
+
+        # ---- the image with the cull against the one without: equal where
+        # a tile walked its whole range, within alpha_min where K2's
+        # whole-tile exit fell on other batch boundaries
+        rgba = {c: stt.render_tiled(scene, cam, dataclasses.replace(
+            c, alpha_channel=True)) for c in (cfg, cfg_c)}
+        a0, a1 = rgba[cfg], rgba[cfg_c]
+        diff_px = (a1 - a0).abs().amax(dim=-1)
+        # a pixel left with T >= alpha_min kept its tile walking to the end
+        open_px = (1.0 - a0[..., 3]) > cfg.alpha_min + 1e-6
+        ty = torch.arange(H, device=device) // cfg.tile_h
+        tx = torch.arange(W, device=device) // cfg.tile_w
+        tile = ty[:, None] * lay.tiles_x + tx[None, :]
+        open_tile = torch.zeros(lay.tiles_x * lay.tiles_y, dtype=torch.bool,
+                                device=device)
+        open_tile[tile[open_px]] = True
+        whole_walk = open_tile[tile]
+        cull_err = float(diff_px.max())
+        require(cull_err < cfg.alpha_min, f"{kind}: cull image differs by "
+                                          f"{cull_err} >= alpha_min")
+        require(float(diff_px[whole_walk].max()) == 0.0,
+                f"{kind}: cull image differs on tiles walked to the end")
+        fig.update(cull_image_max_abs_diff=cull_err,
+                   cull_tiles_walked_to_end=int(open_tile.sum()))
+
+        # ---- K2 with the per-group exit against its plain version
+        bins = binning.build_tile_bins(proj, H, W, cfg)
+        img = rasterize_tiles(bins, H, W, cfg_s)
+        t0 = time.perf_counter()
+        img_p, walked, gw = rasterize_tiles_plain(bins, H, W, cfg_s,
+                                                  return_walked=True,
+                                                  return_group_walked=True)
+        torch.cuda.synchronize()
+        k2_plain = (time.perf_counter() - t0) * 1e3
+        err = float((img - img_p).abs().max())
+        require(err <= K2_TOL, f"{kind}: K2 subtile max abs error {err}")
+        whole = rasterize_tiles(bins, H, W, cfg)
+        pair_count = (bins.tile_end - bins.tile_start).long()
+        top = int(torch.argmax(pair_count))
+        heavy = pair_count > cfg_s.subtile_heavy_pairs
+        if kind == "surface":
+            # the silhouette tile takes the grouped walk, and its groups
+            # stop apart
+            require(bool(heavy[top]) and bool((gw[top] < walked[top]).any()),
+                    f"surface: the {int(pair_count[top])}-pair tile did not "
+                    f"stop by groups: {gw[top].tolist()}")
+        k2_ms, k2_off_ms = (cuda_ms(lambda c=c: rasterize_tiles(bins, H, W, c),
+                                    20) for c in (cfg_s, cfg))
+        ng = gw.shape[1]
+        work = walk_work(bins, H, W, cfg_s, walked, group_n=gw)
+        nt = bins.tiles_x * bins.tiles_y
+        k2 = kernel_record("rasterize_tiles_subtile",
+                           "splat_tpu_torch/csrc/raster.cu",
+                           "splat_tpu/render/kernels.py:123", err, k2_ms,
+                           k2_plain, 44 * work["walked"] + 8 * nt + 12 * H * W,
+                           ALPHA_OPS * work["box3"]
+                           + K2_KEPT_OPS * work["kept3"],
+                           work["box3"] + K2_KEPT_SFU * work["kept3"])
+        subtile_err = float((img - whole).abs().max())
+        require(subtile_err <= SUBTILE_ATOL,
+                f"{kind}: subtile image {subtile_err} off the whole-tile one")
+        fig.update(k2_subtile_ms=k2_ms, k2_ms=k2_off_ms,
+                   heavy_tiles=int(heavy.sum()),
+                   heaviest_tile_pairs=int(pair_count[top]),
+                   heaviest_tile_group_walked=gw[top].tolist(),
+                   # pairs x 128-px groups composited, with the whole-tile
+                   # exit (each group as far as its tile) and with subtile
+                   group_pair_slots_whole=int(walked.sum()) * ng,
+                   group_pair_slots_subtile=int(gw.sum()),
+                   subtile_vs_whole_image_max_abs_diff=subtile_err)
+        recs[kind] = (k1, k2)
+        del lay, lay_c, keys, owners, keys_p, owners_p, keys0, bins, bins_c
+        del img_p, whole
+
+        def host_ms(c, reps=10):
+            # the host's time to enqueue the binning (K1 and the cull rows
+            # among it), the card kept ahead by a spinning kernel; before
+            # the counted run of the entry points
+            torch.cuda.synchronize()
+            torch.cuda._sleep(HOLD_CYCLES)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                binning.build_tile_bins(proj, H, W, c)
+            t = (time.perf_counter() - t0) * 1e3 / reps
+            torch.cuda.synchronize()
+            return t
+
+        fig["binning_host_ms"] = {"off": [], "cull_pairs": []}
+        for name, c in (("off", cfg), ("cull_pairs", cfg_c)) * 2:
+            fig["binning_host_ms"][name].append(host_ms(c))
+
+        # ---- the entry points with each knob, each counted from 0: every
+        # render must launch K1 and K2 once, each with its knob's variant
+        def counted(what, fn, cull, subtile, renders=1):
+            for f in kernels:
+                f.launches = 0
+            expand.cull_launches = raster.subtile_launches = 0
+            out = fn()
+            got = {"K1": expand.launches, "K1_cull": expand.cull_launches,
+                   "K2": raster.launches, "K2_subtile": raster.subtile_launches,
+                   "K3": kernels[2].launches, "K4": kernels[3].launches}
+            want = {"K1": renders, "K1_cull": renders * cull, "K2": renders,
+                    "K2_subtile": renders * subtile, "K3": 0, "K4": 0}
+            require(got == want, f"{kind} {what}: launches {got}, not {want}")
+            launches[what] = got
+            return out
+
+        launches: dict = {}
+        img_s = counted("render subtile_exit",
+                        lambda: stt.render(scene, cam, cfg_s), 0, 1)
+        require(torch.equal(img_s, img), f"{kind}: stt.render with "
+                                         f"subtile_exit != rasterize_tiles")
+        img_c = counted("render cull_pairs",
+                        lambda: stt.render(scene, cam, cfg_c), 1, 0)
+        img_ct = counted("render_tiled cull_pairs",
+                         lambda: stt.render_tiled(scene, cam, cfg_c), 1, 0)
+        require(torch.equal(img_c, img_ct), f"{kind}: stt.render with "
+                                            f"cull_pairs != render_tiled")
+        require(torch.equal(img_c, a1[..., :3]), f"{kind}: the cull image "
+                                                 f"differs from phase's")
+        del img, img_s, img_ct, a0, a1, rgba
+        both = dataclasses.replace(cfg_s, cull_pairs=True)
+        img_b = counted("render_tiled both",
+                        lambda: stt.render_tiled(scene, cam, both), 1, 1)
+        # the slab renders of the sharded paths reach both knobs through
+        # the same binning and compositing
+        proj_b = project_gaussians(scene, cam, both)
+        parts = counted("2 slabs both", lambda: [
+            sharding.render_slab_tiled(proj_b, g * (H // 2), H // 2, W, both)
+            for g in range(2)], 1, 1, renders=2)
+        require(all(int(o) == 0 for _, o in parts), f"{kind}: slab overflow")
+        # the slabs' tile grids differ from the frame's (540 rows), so the
+        # whole-tile exits fall elsewhere: each render stops a pixel only
+        # below T < alpha_min, and the two differ by less than alpha_min
+        slab = torch.cat([p for p, _ in parts])
+        slab_err = float((slab - img_b).abs().max())
+        slab_psnr = float(stt.psnr(slab, img_b))
+        require(slab_err < cfg.alpha_min and slab_psnr >= SLAB_MIN_PSNR,
+                f"{kind}: 2-way slab split with both knobs: max abs "
+                f"{slab_err}, {slab_psnr:.2f} dB")
+        fig.update(slab_split_max_abs_diff=slab_err,
+                   slab_split_psnr=slab_psnr)
+        for im in (img_c, img_b):
+            require(im.shape == (H, W, 3) and bool(torch.isfinite(im).all()),
+                    f"{kind}: knob render: bad shape or non-finite values")
+        # chained_bench renders 2 * frames + 1 times
+        confs = (("off", cfg, 0, 0), ("subtile_exit", cfg_s, 0, 1),
+                 ("cull_pairs", cfg_c, 1, 0))
+        sweeps: dict = {name: [] for name, *_ in confs}
+        for i, (name, c, cull, sub) in enumerate(confs + confs[::-1]):
+            # in turns, there and back
+            r = counted(f"sweep {name} {i}", lambda c=c: chained_bench(
+                scene, cam, c, SWEEP_FRAMES), cull, sub,
+                renders=2 * SWEEP_FRAMES + 1)
+            require(r["overflow"] == 0, f"{kind} {name}: overflow")
+            sweeps[name].append(r["ms_per_frame"])
+        fig["ms_per_frame"] = sweeps
+        fig["launches"] = launches
+        k1["launches"] = sum(n["K1_cull"] for n in launches.values())
+        k2["launches"] = sum(n["K2_subtile"] for n in launches.values())
+        figures[kind] = fig
+        print(f"[knobs] {kind} {N_BIG} @{W}x{H}: K1 cull exact, kept {kept} "
+              f"of {pairs} pairs ({culled} culled), K1 {k1_ms:.4f} ms with "
+              f"cull vs {k1_off_ms:.4f} ms without; cull image max abs diff "
+              f"{cull_err:.3e} ({int(open_tile.sum())} tiles walked to the "
+              f"end, equal there); K2 subtile max abs err {err:.3e}, "
+              f"{int(heavy.sum())} heavy tiles, "
+              f"{fig['group_pair_slots_subtile']} group-pair slots vs "
+              f"{fig['group_pair_slots_whole']} "
+              f"whole-tile, K2 {k2_ms:.4f} ms subtile vs {k2_off_ms:.4f} ms, "
+              f"image {subtile_err:.3e} off the whole-tile one; ms/frame "
+              f"{sweeps}; launches {launches}")
+        del scene, proj, proj_b
+    k1, k2 = recs["random"]
+    for rec, srf in zip(recs["random"], recs["surface"]):
+        rec.update({f"surface_{key}": srf[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "launches")})
+    print(json.dumps({"knobs": figures}).replace("Infinity", '"inf"'))
+    return k1, k2, figures
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1137,7 +1402,8 @@ def main() -> int:
     for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
         k["parallel_launches"] = sum(n.get(key, 0)
                                      for n in par["launches"].values())
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    k1c, k2s, _ = knob_path(device, kernels)
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k1c, k2s]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -36,10 +36,11 @@ _L = ctypes.c_int64
 _F = ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu)
 _SIGNATURES = {
-    "splat_expand_pairs": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _P, _P,
-                           _P],
+    "splat_expand_pairs": [_P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I,
+                           _I, _P, _P, _P],
     "splat_rasterize": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
-                        _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P],
+                        _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
     "splat_rasterize_train_fwd": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _I,
                                   _I, _I, _I, _I, _I, _P],

@@ -2,9 +2,9 @@
 
 Same field names, defaults and validation as ``splat_tpu.config`` so one set
 of keyword arguments drives both packages.  The knobs that only shape the TPU
-kernels' internals are accepted and have no effect on the card; the knobs
-whose TPU machinery changes which (gaussian, tile) pairs are walked raise
-``NotImplementedError`` until the port carries that machinery.
+kernels' internals are accepted and have no effect on the card; the two that
+change how a kernel walks its pairs (``cull_pairs`` in K1, ``subtile_exit``
+in K2) run in the card's kernels, off by default as in ``splat_tpu``.
 """
 
 from __future__ import annotations
@@ -57,15 +57,29 @@ class RenderConfig:
         exit is checked after each batch.  Batch boundaries sit at absolute
         multiples of ``chunk`` in the sorted pair array, which for chunk 64
         or 128 are exactly the TPU kernel's window boundaries.
-      cull_pairs: not ported (raises NotImplementedError when True).
+      cull_pairs: K1 drops each (gaussian, tile) pair whose alpha is below
+        alpha_min at every pixel of the tile (a bound on the conic's least
+        eigenvalue, with a margin for the raster kernel's f32 rounding, so
+        the cull is lossless; never for non-finite or degenerate splats).
+        A dropped pair takes the slot key of an unfilled slot and is never
+        walked; pair_stats, capacity and overflow stay pre-cull, num_pairs
+        counts the pairs kept.  Off by default, as in splat_tpu.
       expand_impl: TPU expansion selector; no effect on the card (the port
         has one expansion kernel).
       binning_key: "depth" or "rank".  On the card both give the same exact
         front-to-back order: the pair sort key carries the full f32 depth
         and the stable sort breaks ties by gaussian index.
       background: color composited under the final transmittance.
-      subtile_exit: not ported (raises NotImplementedError when True).
-      subtile_heavy_pairs: only read with subtile_exit; no effect.
+      subtile_exit: on a heavy tile K2 lays the pixels out as 8 x 16
+        groups (one or more a warp) and each group stops compositing after
+        the first batch that leaves every one of its pixels with
+        T < alpha_min / 4096; the tile ends where the whole-tile exit ends
+        it.  The image stays within 1e-6 of the whole-tile one (splat_tpu's
+        phase compaction stops its groups elsewhere, within alpha_min).
+        Tiles that do not divide into 8 x 16 groups keep the whole-tile
+        exit.  Off by default, as in splat_tpu.
+      subtile_heavy_pairs: a tile is heavy where its pair range holds more
+        than this many pairs (only read with subtile_exit).
       transmit_mxu / exact_color_accum: TPU matrix-unit choices; no effect
         on the card, where transmittance is a serial product and colors
         accumulate in f32.
@@ -136,11 +150,6 @@ class RenderConfig:
                 "opacity-aware radius every bbox covers the whole screen "
                 "(pair count = N x tiles)")
         check_kernel_limits(self.tile_w, self.tile_h, self.chunk)
-        if self.subtile_exit:
-            raise NotImplementedError(
-                "subtile_exit (per-group phase compaction) is not ported")
-        if self.cull_pairs:
-            raise NotImplementedError("cull_pairs is not ported")
 
     @property
     def tile_w(self) -> int:

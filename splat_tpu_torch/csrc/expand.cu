@@ -10,6 +10,15 @@
 // bits order like the float).  Slots past min(total, k_cap) get the sentinel
 // key num_tiles << 32 and owner 0.
 //
+// With a cull table (render/binning.py::cull_rows: per gaussian cx, cy, lam,
+// thresh) the kernel also drops the dead pairs, as the TPU kernel's `cull`
+// does: a slot whose tile's nearest pixel lies (dx, dy) from the owner's
+// centre, with (dx*dx + dy*dy) * lam > thresh, gets the sentinel key and
+// owner 0 too, so it sorts after every pair the raster kernel walks.  The
+// bound is exact in f32 with margins (cull_rows), not the TPU's 8-px
+// quantized one; thresh = +inf never culls.  The test is a template
+// variant: without a table the kernel is the one it was.
+//
 // What bounds it on the card: bytes.  It must read 24 bytes a gaussian and
 // write 16 bytes a slot (57 MB at 1M gaussians and 2.05M slots).  One search
 // per slot over the whole prefix sum in global memory, ~log2(N) = 20
@@ -60,19 +69,49 @@ struct ExpandArgs {
   const int32_t* ty0;
   const int32_t* span_w;
   const int32_t* depth_bits;
+  const float4* cull;  // (cx, cy, lam, thresh) per gaussian, or null
   int64_t n;
-  int32_t ntx;
+  int32_t ntx, tile_w, tile_h;
 };
 
+// The cull's test (plain version: render/expand.py::cull_dead), in
+// explicitly rounded operations in the plain version's order: the tile's
+// pixels are [tx * tile_w, tx * tile_w + tile_w - 1] (and so in y), and
+// the offset to the nearest one is rounded as the raster kernel rounds
+// px - cx (a NaN offset keeps the pair: fmaxf drops it, thresh is +inf).
+__device__ __forceinline__ bool cull_dead(const ExpandArgs& a, int64_t g,
+                                          int64_t tx, int64_t ty) {
+  const float4 c = a.cull[g];
+  const float xa = (float)(tx * a.tile_w), ya = (float)(ty * a.tile_h);
+  const float xb = __fadd_rn(xa, (float)(a.tile_w - 1));
+  const float yb = __fadd_rn(ya, (float)(a.tile_h - 1));
+  const float ddx =
+      fmaxf(fmaxf(__fsub_rn(xa, c.x), __fsub_rn(c.x, xb)), 0.f);
+  const float ddy =
+      fmaxf(fmaxf(__fsub_rn(ya, c.y), __fsub_rn(c.y, yb)), 0.f);
+  const float d2 = __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy));
+  return __fmul_rn(d2, c.z) > c.w;
+}
+
+template <bool CULL>
 __device__ __forceinline__ int64_t key_of(const ExpandArgs& a, int64_t g,
-                                          int64_t r) {
+                                          int64_t r, int32_t num_tiles,
+                                          int64_t* own) {
   const int64_t sw = a.span_w[g];
   const int64_t dy = r / sw;
   const int64_t dx = r - dy * sw;
-  const int64_t tile = (a.ty0[g] + dy) * a.ntx + a.tx0[g] + dx;
-  return (tile << 32) | (int64_t)(uint32_t)a.depth_bits[g];
+  const int64_t tx = a.tx0[g] + dx, ty = a.ty0[g] + dy;
+  if constexpr (CULL) {
+    if (cull_dead(a, g, tx, ty)) {
+      *own = 0;
+      return (int64_t)num_tiles << 32;
+    }
+  }
+  *own = g;
+  return ((ty * a.ntx + tx) << 32) | (int64_t)(uint32_t)a.depth_bits[g];
 }
 
+template <bool CULL>
 __global__ void __launch_bounds__(THREADS) expand_pairs_kernel(
     ExpandArgs a, const int64_t* __restrict__ total, int64_t k_cap,
     int32_t num_tiles, int64_t* __restrict__ keys,
@@ -143,8 +182,7 @@ __global__ void __launch_bounds__(THREADS) expand_pairs_kernel(
         g = upper_bound(a.first_slot, g_lo, bound[1], kk) - 1;
         first = a.first_slot[g];
       }
-      key[j] = key_of(a, g, kk - first);
-      own[j] = g;
+      key[j] = key_of<CULL>(a, g, kk - first, num_tiles, &own[j]);
     }
     if (k + 1 < kend) {  // k is even and the arrays are 16-byte aligned
       *reinterpret_cast<longlong2*>(keys + k) = make_longlong2(key[0], key[1]);
@@ -157,22 +195,34 @@ __global__ void __launch_bounds__(THREADS) expand_pairs_kernel(
   }
 }
 
+// cull: (n, 4) f32 rows of render/binning.py::cull_rows, or null (no cull).
 extern "C" int splat_expand_pairs(const void* first_slot, const void* tx0,
                                   const void* ty0, const void* span_w,
                                   const void* depth_bits, const void* total,
-                                  int64_t n, int64_t k_cap, int ntx,
-                                  int num_tiles, void* keys, void* owner,
+                                  const void* cull, int64_t n, int64_t k_cap,
+                                  int ntx, int num_tiles, int tile_w,
+                                  int tile_h, void* keys, void* owner,
                                   void* stream) {
-  // the paired stores need 16-byte aligned outputs (torch.empty's are)
-  if (((uintptr_t)keys | (uintptr_t)owner) & 15)
+  // the paired stores need 16-byte aligned outputs (torch.empty's are), and
+  // the cull table is read as float4
+  if (((uintptr_t)keys | (uintptr_t)owner | (uintptr_t)cull) & 15)
     return (int)cudaErrorMisalignedAddress;
   const ExpandArgs a = {(const int64_t*)first_slot, (const int32_t*)tx0,
                         (const int32_t*)ty0, (const int32_t*)span_w,
-                        (const int32_t*)depth_bits, n, ntx};
+                        (const int32_t*)depth_bits, (const float4*)cull,
+                        n, ntx, tile_w, tile_h};
   const int64_t blocks = (k_cap + SLOTS_PER_BLOCK - 1) / SLOTS_PER_BLOCK;
-  expand_pairs_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      a, (const int64_t*)total, k_cap, num_tiles, (int64_t*)keys,
-      (int64_t*)owner);
+  if (cull) {
+    expand_pairs_kernel<true>
+        <<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            a, (const int64_t*)total, k_cap, num_tiles, (int64_t*)keys,
+            (int64_t*)owner);
+  } else {
+    expand_pairs_kernel<false>
+        <<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+            a, (const int64_t*)total, k_cap, num_tiles, (int64_t*)keys,
+            (int64_t*)owner);
+  }
   return (int)cudaGetLastError();
 }
 

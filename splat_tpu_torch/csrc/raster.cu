@@ -17,6 +17,23 @@
 // Pixel convention as on the TPU: integer pixel coordinates (no +0.5) and
 // dy = cy - py.  The image is written as (H, W, C) directly.
 //
+// subtile_exit (the TPU kernel's per-pixel-group exit, which it runs as phase
+// compaction): a heavy tile, one whose pair range holds more than
+// heavy_pairs pairs, whose pixels divide into 8 x 16 groups, is laid out
+// group by group instead of row by row (raster_walk<P, _, true>).  At 4 or
+// more pixels a thread a warp then holds P / 4 whole groups, a lane 4 pixels
+// of each; at fewer, a group spans 4 / P warps.  After each batch every
+// group whose pixels all have T < alpha_min / 2^GROUP_STOP_SHIFT stops: a
+// warp's lanes OR their groups' flags (__reduce_or_sync), and where a group
+// spans warps they meet in a shared word.  So what a stopped pixel leaves
+// out is below 2^-GROUP_STOP_SHIFT of alpha_min, and the image is within
+// that of the whole-tile exit's.  A warp walks only the pairs of its live
+// groups' pixels and none at all once its groups have stopped; a block
+// whose groups have all stopped stages no more pairs.  Where the tile ends
+// is the whole-tile rule's, voted across the cluster as on any split tile.
+// Light tiles, and every tile without subtile_exit, take the kernel as it
+// was (raster_kernel<PPT, false> is launched when subtile_exit is off).
+//
 // What bounds it on the card, and what the design does about it (the
 // training kernels, csrc/raster_train.cu, share all three answers through
 // csrc/raster_common.cuh):
@@ -91,14 +108,88 @@ struct RasterArgs {
   int H, W, tile_w, tile_h, tiles_x, chunk;
   float alpha_clamp, alpha_min, bg0, bg1, bg2;
   int nchan, use_bbox;
+  // subtile_exit: groups in a row of the tile (0: no tile is grouped), and
+  // the pair count above which a tile is heavy
+  int group_cols, heavy_pairs;
 };
 
-// K2 for the pixels [group * THREADS * P, (group + 1) * THREADS * P) of
-// tile t; with CLUSTER, the tile's blocks form a cluster and vote together.
-template <int P, bool CLUSTER>
+// subtile_exit's pixel groups (render/kernels.py::group_grid)
+#define GROUP_W 16
+#define GROUP_H 8
+#define GROUP_PX (GROUP_W * GROUP_H)
+// a group stops once all its pixels have T < alpha_min / 2^GROUP_STOP_SHIFT
+#define GROUP_STOP_SHIFT 12
+
+__device__ __forceinline__ bool grouped_tile(const RasterArgs& a, int t) {
+  return a.group_cols > 0 && a.tile_end[t] - a.tile_start[t] > a.heavy_pairs;
+}
+
+// Pixel slot p of a tile -> its (x, y) in the tile: row by row, or group
+// by group (GROUPED: slot g * GROUP_PX + q is pixel q of group g, groups
+// row by row, group_cols to a row).
+template <bool GROUPED>
+__device__ __forceinline__ void slot_xy(const RasterArgs& a, int p, int* x,
+                                        int* y) {
+  if constexpr (GROUPED) {
+    const int g = p / GROUP_PX, q = p % GROUP_PX;
+    *x = (g % a.group_cols) * GROUP_W + q % GROUP_W;
+    *y = (g / a.group_cols) * GROUP_H + q / GROUP_W;
+  } else {
+    *x = p % a.tile_w;
+    *y = p / a.tile_w;
+  }
+}
+
+// The rectangle that holds a warp's slots in the group-by-group layout (a
+// superset where they span several groups): the strip test may only pass
+// more pairs than the pixels keep, never fewer.
+template <int P>
+__device__ __forceinline__ Strip group_strip(const RasterArgs& a, int base,
+                                             int npix, int x0, int y0) {
+  Strip st;
+  const int pa = base + (threadIdx.x >> 5) * 32 * P;
+  const int pb = min(pa + 32 * P, npix) - 1;
+  st.any = pa < npix;
+  const int ga = pa / GROUP_PX, gb = pb / GROUP_PX;
+  const int gxa = ga % a.group_cols, gya = ga / a.group_cols;
+  if (ga == gb) {
+    const int ra = (pa % GROUP_PX) / GROUP_W, rb = (pb % GROUP_PX) / GROUP_W;
+    st.xa = (float)(x0 + gxa * GROUP_W + (ra == rb ? pa % GROUP_W : 0));
+    st.xb = (float)(x0 + gxa * GROUP_W +
+                    (ra == rb ? pb % GROUP_W : GROUP_W - 1));
+    st.ya = (float)(y0 + gya * GROUP_H + ra);
+    st.yb = (float)(y0 + gya * GROUP_H + rb);
+  } else if (gya == gb / a.group_cols) {
+    st.xa = (float)(x0 + gxa * GROUP_W);
+    st.xb = (float)(x0 + (gb % a.group_cols) * GROUP_W + GROUP_W - 1);
+    st.ya = (float)(y0 + gya * GROUP_H);
+    st.yb = (float)(y0 + gya * GROUP_H + GROUP_H - 1);
+  } else {
+    st.xa = (float)x0;
+    st.xb = (float)(x0 + a.tile_w - 1);
+    st.ya = (float)(y0 + gya * GROUP_H);
+    st.yb = (float)(y0 + (gb / a.group_cols) * GROUP_H + GROUP_H - 1);
+  }
+  return st;
+}
+
+// A grouped walk's flag bit of a lane's pixel i: at P >= 4 the lane's
+// pixels 4u .. 4u + 3 are in the warp's u-th group; below, all in one.
+template <int P>
+__host__ __device__ constexpr int unit_of(int i) {
+  return P >= 4 ? i / 4 : 0;
+}
+
+// K2 for the pixel slots [group * THREADS * P, (group + 1) * THREADS * P)
+// of tile t.  With CLUSTER, the tile's blocks form a cluster and vote
+// together on where the tile ends.  GROUPED: the slots are laid out group
+// by group, and each pixel group also stops on its own.
+template <int P, bool CLUSTER, bool GROUPED>
 __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
                                             int group, int nsplit,
-                                            float4* smem, int* vote) {
+                                            float4* smem, int* vote,
+                                            unsigned* gvote) {
+  constexpr bool VOTES = CLUSTER;
   const int s = a.tile_start[t];
   const int e = a.tile_end[t];
   const int npix = a.tile_w * a.tile_h;
@@ -106,24 +197,42 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
   const int y0 = (t / a.tiles_x) * a.tile_h;
   const int base = group * THREADS * P;
   const int lane = threadIdx.x & 31;
-  const int pw = base + (threadIdx.x >> 5) * 32 * P + lane;
-  const Strip st = warp_strip<P>(base, npix, a.tile_w, x0, y0);
+  const int warp = threadIdx.x >> 5;
+  const int pw = base + warp * 32 * P + lane;
+  Strip st;
+  if constexpr (GROUPED) {
+    st = group_strip<P>(a, base, npix, x0, y0);
+  } else {
+    st = warp_strip<P>(base, npix, a.tile_w, x0, y0);
+  }
 
   float px[P], py[P], cr[P], cg_[P], cb[P], tr[P];
   bool on[P];
 #pragma unroll
   for (int i = 0; i < P; ++i) {
     const int p = pw + i * 32;
+    int x, y;
+    slot_xy<GROUPED>(a, p, &x, &y);
     on[i] = p < npix;
-    px[i] = (float)(x0 + p % a.tile_w);
-    py[i] = (float)(y0 + p / a.tile_w);
+    px[i] = (float)(x0 + x);
+    py[i] = (float)(y0 + y);
     cr[i] = cg_[i] = cb[i] = 0.f;
     tr[i] = on[i] ? 1.f : 0.f;  // slots past the tile never vote
   }
-  if constexpr (CLUSTER) {
+  // GROUPED: bit u is set while the warp's u-th group (P >= 4), or the
+  // group the warp holds a share of, is live; warp-uniform.  busy: some
+  // group of the block is live; block-uniform
+  unsigned live = P >= 4 ? (1u << (P / 4)) - 1u : 1u;
+  int busy = 1;
+  const float gstop = a.alpha_min * (1.f / (1 << GROUP_STOP_SHIFT));
+  if constexpr (VOTES) {
     // vote[0] starts at "no batch voted on" before any block reads it
     if (threadIdx.x == 0) vote[0] = 0;
     cg::this_cluster().sync();
+  }
+  if constexpr (GROUPED && P < 4) {
+    // cleared before the first staging barrier orders them
+    if (threadIdx.x == 0) gvote[0] = gvote[1] = 0u;
   }
 
   int batch = 0;
@@ -133,14 +242,14 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
     // not unrolled: unrolling these two loops took K2<4> from 64 to 80
     // registers and K3<4> from 80 to 127 (ptxas, sm_90a)
 #pragma unroll 1
-    for (int k0 = max(s, kb); k0 < b_end; k0 += STAGE_PAIRS) {
+    for (int k0 = max(s, kb); busy && k0 < b_end; k0 += STAGE_PAIRS) {
       __syncthreads();  // the previous pairs are consumed
       const int hi = min(b_end - k0, STAGE_PAIRS);
 #pragma unroll 1
       for (int q = threadIdx.x; q < hi; q += THREADS)
         stage_pair(smem + 3 * q, a.feats, a.kp, k0 + q);
       __syncthreads();
-      if (st.any) {
+      if (st.any && live) {
         // lane l tests pair q0 + l against the warp's strip; the warp then
         // walks the pairs that passed, in order
         for (int q0 = 0; q0 < hi; q0 += 32) {
@@ -157,6 +266,7 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
 #pragma unroll
             for (int i = 0; i < P; ++i) {
               if (!on[i]) continue;
+              if (GROUPED && !((live >> unit_of<P>(i)) & 1u)) continue;
               const Alpha al =
                   pair_alpha(px[i], py[i], g0, g1, a.alpha_clamp,
                              a.alpha_min, a.use_bbox);
@@ -174,13 +284,39 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
     float tmax = 0.f;
 #pragma unroll
     for (int i = 0; i < P; ++i) tmax = fmaxf(tmax, tr[i]);
-    int go = __syncthreads_or(tmax >= a.alpha_min);
-    if constexpr (CLUSTER) {
-      // The tile goes on if any of its blocks votes to.  A block that does
-      // publishes its vote and walks on without waiting; only a block
-      // whose own pixels are saturated has to learn what the others voted
-      // on this batch.  vote[0] holds 2 * (batch + 1) + vote; a block found
-      // past this batch shows that the tile went on.
+    int go;
+    if constexpr (GROUPED) {
+      // each group's flag: some pixel of it still has T >= gstop
+      unsigned mine = 0u;
+#pragma unroll
+      for (int i = 0; i < P; ++i)
+        if (tr[i] >= gstop) mine |= 1u << unit_of<P>(i);
+      mine = __reduce_or_sync(FULL, mine);
+      if constexpr (P < 4) {
+        // the warps of a group meet in gvote[batch & 1], bit (warp * P /
+        // 4); thread 0 clears the other word for the next batch, which
+        // no thread reads or writes before the next barrier
+        if (lane == 0 && mine)
+          atomicOr(&gvote[batch & 1], 1u << (warp * P / 4));
+        busy = __syncthreads_or(mine != 0u);
+        live = (gvote[batch & 1] >> (warp * P / 4)) & 1u;
+        if (threadIdx.x == 0) gvote[(batch + 1) & 1] = 0u;
+      } else {
+        live = mine;
+        busy = __syncthreads_or(mine != 0u);
+      }
+      // a pixel with T >= alpha_min keeps its group live: no barrier where
+      // none is
+      go = busy ? __syncthreads_or(tmax >= a.alpha_min) : 0;
+    } else {
+      go = __syncthreads_or(tmax >= a.alpha_min);
+    }
+    if constexpr (VOTES) {
+      // The tile goes on if any of its blocks votes to.  A block that
+      // does publishes its vote and walks on without waiting; only a
+      // block whose own pixels are saturated has to learn what the others
+      // voted on this batch.  vote[0] holds 2 * (batch + 1) + vote; a
+      // block found past this batch shows that the tile went on.
       const int own = go;
       if (threadIdx.x == 0) {
         vote_publish(&vote[0], 2 * (batch + 1) + own);
@@ -193,7 +329,8 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
             for (int r = 0; r < nsplit && !go; ++r) {
               if (r == me) continue;
               const int v = vote_read(cl.map_shared_rank(vote, r));
-              if ((v >> 1) > batch + 1 || ((v >> 1) == batch + 1 && (v & 1)))
+              if ((v >> 1) > batch + 1 ||
+                  ((v >> 1) == batch + 1 && (v & 1)))
                 go = 1;
               else if ((v >> 1) <= batch)
                 waiting = true;  // that block has not voted on this batch
@@ -210,13 +347,14 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
     if (!go) break;
   }
   // no block leaves while another may still read its votes
-  if constexpr (CLUSTER) cg::this_cluster().sync();
+  if constexpr (VOTES) cg::this_cluster().sync();
 
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    const int p = pw + i * 32;
-    const int x = x0 + p % a.tile_w;
-    const int y = y0 + p / a.tile_w;
+    int x, y;
+    slot_xy<GROUPED>(a, pw + i * 32, &x, &y);
+    x += x0;
+    y += y0;
     if (!on[i] || x >= a.W || y >= a.H) continue;
     float* o = a.out + ((int64_t)y * a.W + x) * a.nchan;
     o[0] = fminf(fmaxf(__fadd_rn(cr[i], __fmul_rn(tr[i], a.bg0)), 0.f), 1.f);
@@ -226,16 +364,28 @@ __device__ __forceinline__ void raster_walk(const RasterArgs& a, int t,
   }
 }
 
-template <int PPT>
-__global__ void __launch_bounds__(THREADS) raster_kernel(
-    RasterArgs a, const int32_t* __restrict__ order,
+// One launch's blocks: each takes its tile (and pixel group) from the work
+// list.  SUBTILE: heavy tiles take the grouped walk (grouped_tile); without
+// it the kernel holds only the whole-tile walks.
+template <int PPT, bool SUBTILE>
+__device__ __forceinline__ void raster_tiles(
+    const RasterArgs& a, const int32_t* __restrict__ order,
     const int32_t* __restrict__ nheavy, int num_tiles, int groups) {
   extern __shared__ float4 smem[];  // [min(chunk, STAGE_PAIRS)][3]
   __shared__ int vote[2];
+  __shared__ unsigned gvote[2];
   if constexpr (PPT == MAX_PPT) {
     if (groups > 1) {  // every tile a cluster of `groups` blocks, in order
-      raster_walk<PPT, true>(a, order[blockIdx.x / groups],
-                             blockIdx.x % groups, groups, smem, vote);
+      const int t = order[blockIdx.x / groups];
+      if constexpr (SUBTILE) {
+        if (grouped_tile(a, t)) {
+          raster_walk<PPT, true, true>(a, t, blockIdx.x % groups, groups,
+                                       smem, vote, gvote);
+          return;
+        }
+      }
+      raster_walk<PPT, true, false>(a, t, blockIdx.x % groups, groups, smem,
+                                    vote, gvote);
       return;
     }
   }
@@ -244,11 +394,45 @@ __global__ void __launch_bounds__(THREADS) raster_kernel(
   if (!work_of(order, nheavy, num_tiles, S, &w)) return;
   if constexpr (S > 1) {
     if (w.split > 1) {  // uniform over the cluster
-      raster_walk<PPT / S, true>(a, w.tile, w.group, S, smem, vote);
+      if constexpr (SUBTILE) {
+        if (grouped_tile(a, w.tile)) {
+          raster_walk<PPT / S, true, true>(a, w.tile, w.group, S, smem, vote,
+                                           gvote);
+          return;
+        }
+      }
+      raster_walk<PPT / S, true, false>(a, w.tile, w.group, S, smem, vote,
+                                        gvote);
       return;
     }
   }
-  raster_walk<PPT, false>(a, w.tile, 0, 1, smem, vote);
+  if constexpr (SUBTILE) {
+    if (grouped_tile(a, w.tile)) {
+      raster_walk<PPT, false, true>(a, w.tile, 0, 1, smem, vote, gvote);
+      return;
+    }
+  }
+  raster_walk<PPT, false, false>(a, w.tile, 0, 1, smem, vote, gvote);
+}
+
+template <int PPT, bool SUBTILE>
+__global__ void __launch_bounds__(THREADS) raster_kernel(
+    RasterArgs a, const int32_t* __restrict__ order,
+    const int32_t* __restrict__ nheavy, int num_tiles, int groups) {
+  raster_tiles<PPT, SUBTILE>(a, order, nheavy, num_tiles, groups);
+}
+
+// The grouped walk takes K2<4> past 64 registers (to 80 as first
+// written): 3 blocks an SM where the whole-tile kernel keeps 4, and light
+// tiles 4% slower (0.529 against 0.507 ms at 1M random gaussians @1080p,
+// H100).  Held to 4 blocks it spills 84 bytes, runs light tiles as fast
+// as the whole-tile kernel and the surface frame's heavy ones 0.8% faster
+// (utils/raster_probe.py tune --subtile: variant subtile_blocks_3 is the
+// kernel without the bound).
+__global__ void __launch_bounds__(THREADS, 4) raster_kernel_subtile4(
+    RasterArgs a, const int32_t* __restrict__ order,
+    const int32_t* __restrict__ nheavy, int num_tiles, int groups) {
+  raster_tiles<4, true>(a, order, nheavy, num_tiles, groups);
 }
 
 template <int PPT>
@@ -270,9 +454,17 @@ static cudaError_t launch(const RasterArgs& a, const int32_t* order,
   attr.val.clusterDim.z = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = S > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, raster_kernel<PPT>, a,
-                                             order, nheavy, num_tiles,
-                                             groups);
+  cudaError_t err;
+  if (a.group_cols == 0) {
+    err = cudaLaunchKernelEx(&cfg, raster_kernel<PPT, false>, a, order,
+                             nheavy, num_tiles, groups);
+  } else if constexpr (PPT == 4) {
+    err = cudaLaunchKernelEx(&cfg, raster_kernel_subtile4, a, order, nheavy,
+                             num_tiles, groups);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, raster_kernel<PPT, true>, a, order,
+                             nheavy, num_tiles, groups);
+  }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -285,11 +477,16 @@ extern "C" int splat_rasterize(const void* tile_start, const void* tile_end,
                                float alpha_min, float bg0, float bg1,
                                float bg2, int nchan, int use_bbox, int ppt,
                                int groups, int slots, int min_pairs,
+                               int group_cols, int heavy_pairs,
                                void* stream) {
   const RasterArgs a = {(const int32_t*)tile_start, (const int32_t*)tile_end,
                         (const float*)feats, kp, (float*)out, H, W, tile_w,
                         tile_h, tiles_x, chunk, alpha_clamp, alpha_min, bg0,
-                        bg1, bg2, nchan, use_bbox};
+                        bg1, bg2, nchan, use_bbox, group_cols, heavy_pairs};
+  // group_cols > 0 (subtile_exit) needs a tile of whole 8 x 16 groups
+  if (group_cols < 0 || (group_cols > 0 && (group_cols * GROUP_W != tile_w ||
+                                            tile_h % GROUP_H != 0)))
+    return (int)cudaErrorInvalidValue;
   int32_t* o = (int32_t*)order;
   int32_t* nh = (int32_t*)nheavy;
   const cudaStream_t st = (cudaStream_t)stream;

@@ -18,6 +18,11 @@ dropping the TPU workarounds:
 6. one feature gather into f32 rows (cx, cy, the prescaled conic terms,
    r, g, b, opacity, rx^2, ry^2) — no int32 bit packing, no u16 colors.
 
+With ``cull_pairs`` K1 also drops the pairs whose alpha is below
+alpha_min at every pixel of their tile (:func:`cull_rows` holds the
+per-gaussian bound): they take the unfilled slots' key and are never
+walked.  Capacity and overflow count them; ``num_pairs`` does not.
+
 Capacity: K_cap = int(max_dup_factor * N) slots.  Pairs past it are
 counted in ``overflow`` (the highest-index gaussians' pairs are the ones
 dropped) and ``num_pairs + overflow`` is the true pair count: never a
@@ -28,6 +33,7 @@ slots, so the slot demand is the pair count alone.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -56,7 +62,8 @@ class TileBins:
       quantized radii (+inf when saturated).
     tile_start / tile_end: (T,) int32 pair ranges per tile.
     ranks: (K_cap,) int64 gaussian index of each sorted pair.
-    num_pairs: () int64 valid pairs within capacity.
+    num_pairs: () int64 valid pairs within capacity (with cull_pairs,
+      those the cull kept: the pairs the raster kernel walks).
     overflow: () int64 pairs dropped for capacity.
     num_gaussians: N of the projection the pairs were binned from.
     """
@@ -134,6 +141,46 @@ def _spans(proj: ProjectedGaussians, h: int, w: int, config: RenderConfig):
     return rbits, spans
 
 
+# cull_rows' margins: the bound on the least eigenvalue gives way by this
+# share of the trace, the log threshold by CULL_LOG_MARGIN (see cull_rows)
+CULL_TRACE_MARGIN = 1e-5
+CULL_LOG_MARGIN = 1e-4
+# centres farther than this from the origin, in pixels, are never culled
+CULL_MAX_CENTRE = 1e6
+
+
+def cull_rows(proj: ProjectedGaussians, alpha_min: float) -> torch.Tensor:
+    """(N, 4) f32 rows (cx, cy, lam, thresh) of K1's dead-pair cull.
+
+    A pair of gaussian g and a tile whose nearest pixel lies (dx, dy) from
+    the centre is dead where ``(dx*dx + dy*dy) * lam > thresh`` in f32.
+    lam is the conic's least eigenvalue, det / lam_max (no cancellation in
+    the root; f32 error a few ulp of the trace), less CULL_TRACE_MARGIN of
+    the trace; thresh is 2 log(opacity / alpha_min) + CULL_LOG_MARGIN.  So
+    at every pixel of the tile the raster kernel's own f32 alpha,
+    min(clamp, op * exp(power)), is below alpha_min: its power's rounding
+    is at most a few ulp of trace * d^2, far inside the first margin, and
+    its exp and product within the second.  The culled pair would
+    composite nothing; the cull is lossless.
+
+    thresh = +inf never culls (``splat_tpu``'s ``r8 == 255``): invisible
+    splats, non-finite fields or opacity <= 0 (lam or thresh not finite),
+    centres beyond CULL_MAX_CENTRE px or NaN, and splats so thin that the
+    margin leaves lam <= 0.  The other fields of such a row are left as
+    they come: nothing exceeds +inf."""
+    a, b, c = proj.conic.unbind(1)
+    tr = a + c
+    lam = ((a * c - b * b) / (0.5 * tr + torch.hypot(0.5 * (a - c), b))
+           - CULL_TRACE_MARGIN * tr)
+    thresh = 2.0 * torch.log(proj.opacity / alpha_min) + CULL_LOG_MARGIN
+    cx, cy = proj.center_px.unbind(1)
+    ok = (proj.visible & torch.isfinite(lam) & torch.isfinite(thresh)
+          & (lam > 0) & (cx.abs() <= CULL_MAX_CENTRE)
+          & (cy.abs() <= CULL_MAX_CENTRE))
+    return torch.stack([cx, cy, lam, torch.where(ok, thresh, math.inf)],
+                       dim=1)
+
+
 def count_pairs(proj: ProjectedGaussians, h: int, w: int,
                 config: RenderConfig):
     """Exact pair count the binning stage will produce.
@@ -151,6 +198,8 @@ class SlotLayout:
     depth_bits: (N,) int32 bits of the f32 view depths.
     total: (1,) int64 true pair count.
     rbits: (N,) int32 quantized radii + visibility (quantize_radius_bits).
+    tile_wh: the config's (tile_w, tile_h), which the cull tests against.
+    cull: (N, 4) f32 :func:`cull_rows`, or None (config.cull_pairs off).
     """
 
     first_slot: torch.Tensor
@@ -163,6 +212,8 @@ class SlotLayout:
     k_cap: int
     tiles_x: int
     tiles_y: int
+    tile_wh: tuple[int, int]
+    cull: torch.Tensor | None = None
 
     def expand(self, fn=None):
         """Run the expansion (``expand_pair_keys`` unless ``fn`` is given,
@@ -170,7 +221,8 @@ class SlotLayout:
         return (fn or expand_pair_keys)(
             self.first_slot, self.tx0, self.ty0, self.span_w,
             self.depth_bits, self.total, k_cap=self.k_cap,
-            ntx=self.tiles_x, num_tiles=self.tiles_x * self.tiles_y)
+            ntx=self.tiles_x, num_tiles=self.tiles_x * self.tiles_y,
+            cull=self.cull, tile_wh=self.tile_wh)
 
 
 def slot_layout(proj: ProjectedGaussians, h: int, w: int,
@@ -186,7 +238,10 @@ def slot_layout(proj: ProjectedGaussians, h: int, w: int,
                       depth_bits=proj.depth.contiguous().view(torch.int32),
                       total=total.contiguous(), rbits=rbits,
                       k_cap=int(config.max_dup_factor * n),
-                      tiles_x=ntx, tiles_y=nty)
+                      tiles_x=ntx, tiles_y=nty,
+                      cull=(cull_rows(proj, config.alpha_min)
+                            if config.cull_pairs else None),
+                      tile_wh=(config.tile_w, config.tile_h))
 
 
 def tile_edges(sorted_keys, num_tiles: int):
@@ -214,10 +269,13 @@ def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
         rx * rx, ry * ry,
     ])                                                      # (F, N)
     total = lay.total[0]
+    # with the cull, the pairs it kept: those below the unfilled slots' key
+    kept = (edges[-1].to(torch.int64) if lay.cull is not None
+            else torch.clamp(total, max=lay.k_cap))
     return TileBins(features=feats_n.index_select(1, ranks),  # (F, K_cap)
                     tile_start=edges[:-1].contiguous(),
                     tile_end=edges[1:].contiguous(), ranks=ranks,
-                    num_pairs=torch.clamp(total, max=lay.k_cap),
+                    num_pairs=kept,
                     overflow=torch.clamp(total - lay.k_cap, min=0),
                     tiles_x=lay.tiles_x, tiles_y=lay.tiles_y,
                     num_gaussians=proj.depth.shape[0])

@@ -3,7 +3,8 @@
 The plain versions (``rasterize_tiles_plain``, ``expand_pair_keys_plain``)
 say what a kernel computes; these say how ``csrc/`` computes it where that
 is not obvious to be the same: a warp's strip test, a tile split across the
-blocks of a cluster with their votes, K1's block-wise owner search.  Each
+blocks of a cluster with their votes, the grouped walk of ``subtile_exit``,
+K1's block-wise owner search.  Each
 model is written as the device code is, with the sizes read from the CUDA
 sources (:func:`define`).  The CPU tests hold the models against the plain
 versions; the tests on the card hold the kernels against the models on the
@@ -169,6 +170,121 @@ def split_composite(bins: TileBins, h: int, w: int, cfg: RenderConfig,
             out.append(torch.clamp(1.0 - t_all, 0.0, 1.0)[:, None])
         img[y0:y0 + th, x0:x0 + tw] = torch.cat(out, 1).reshape(th, tw, nchan)
     return img[:h, :w], walked, stopped
+
+
+# ---- csrc/raster.cu: subtile_exit's grouped walk ------------------------
+
+
+def group_layout(tile_w: int, tile_h: int):
+    """``slot_xy<true>``: the (x, y) in the tile of every pixel slot of the
+    group-by-group layout, (tile_w * tile_h,) int64 each."""
+    gw, gh = define("raster.cu", "GROUP_W"), define("raster.cu", "GROUP_H")
+    p = torch.arange(tile_w * tile_h)
+    g, q = p // (gw * gh), p % (gw * gh)
+    cols = tile_w // gw
+    return (g % cols) * gw + q % gw, (g // cols) * gh + q // gw
+
+
+def group_strip(pa: int, pb: int, tile_w: int):
+    """``group_strip``: the rectangle (xa, xb, ya, yb), in tile pixels, that
+    the kernel tests a warp's pairs against for its slots [pa, pb] of the
+    grouped layout."""
+    gw, gh = define("raster.cu", "GROUP_W"), define("raster.cu", "GROUP_H")
+    gp, cols = gw * gh, tile_w // gw
+    ga, gb = pa // gp, pb // gp
+    gxa, gya = ga % cols, ga // cols
+    if ga == gb:
+        ra, rb = (pa % gp) // gw, (pb % gp) // gw
+        return (gxa * gw + (pa % gw if ra == rb else 0),
+                gxa * gw + (pb % gw if ra == rb else gw - 1),
+                gya * gh + ra, gya * gh + rb)
+    if gya == gb // cols:
+        return (gxa * gw, (gb % cols) * gw + gw - 1, gya * gh,
+                gya * gh + gh - 1)
+    return 0, tile_w - 1, gya * gh, (gb // cols) * gh + gh - 1
+
+
+def grouped_composite(bins: TileBins, h: int, w: int, cfg: RenderConfig,
+                      ppt: int, blocks: int):
+    """K2 as ``raster_walk<ppt, _, true>`` runs every tile on the grouped
+    walk (CPU tensors; every tile treated as heavy): ``blocks`` blocks a
+    tile, each of 256 threads with ``ppt`` pixel slots of the grouped layout
+    a thread (lane l of warp v holds slots base + 32 * (v * ppt + i) + l).
+    A warp tests each staged pair against its strip (with a finite
+    sigma_cutoff) and composites it at the pixels of its live groups; after
+    every batch each group whose pixels all have T < alpha_min /
+    2^GROUP_STOP_SHIFT stops, and the tile ends, as the blocks' votes decide,
+    once every pixel has T < alpha_min.  Returns the image and the (T, G)
+    pairs each group walked."""
+    threads = define("raster_common.cuh", "THREADS")
+    gp = define("raster.cu", "GROUP_W") * define("raster.cu", "GROUP_H")
+    gstop = cfg.alpha_min / 2 ** define("raster.cu", "GROUP_STOP_SHIFT")
+    tw, th, chunk = cfg.tile_w, cfg.tile_h, cfg.chunk
+    npix = tw * th
+    ng = npix // gp
+    use_bbox = math.isfinite(cfg.sigma_cutoff)
+    nchan = 4 if cfg.alpha_channel else 3
+    nt = bins.tiles_x * bins.tiles_y
+    img = torch.zeros((bins.tiles_y * th, bins.tiles_x * tw, nchan))
+    group_walked = torch.zeros((nt, ng), dtype=torch.int64)
+    lx, ly = group_layout(tw, th)
+    f = bins.features
+    bg = torch.tensor(cfg.background)
+    slots = torch.arange(npix)
+    grp = slots // gp
+    # each slot's warp over the tile's blocks, and each warp's strip
+    per_block = threads * ppt
+    warp = (slots // per_block) * (threads // 32) + (
+        slots % per_block) // (32 * ppt)
+    for t in range(nt):
+        s, e = int(bins.tile_start[t]), int(bins.tile_end[t])
+        x0, y0 = (t % bins.tiles_x) * tw, (t // bins.tiles_x) * th
+        px, py = (x0 + lx).float(), (y0 + ly).float()
+        rects = {}
+        for v in warp.unique().tolist():
+            b, vb = divmod(v, threads // 32)
+            pa = b * per_block + vb * 32 * ppt
+            xa, xb, ya, yb = group_strip(pa, min(pa + 32 * ppt, npix) - 1,
+                                         tw)
+            rects[v] = np.float32([x0 + xa, x0 + xb, y0 + ya, y0 + yb])
+        col = torch.zeros((npix, 3))
+        tr = torch.ones(npix)
+        live = torch.ones(ng, dtype=torch.bool)
+        for kb in range(s - s % chunk, e, chunk):
+            group_walked[t, live] = min(e, kb + chunk) - s
+            for k in range(max(s, kb), min(e, kb + chunk)):
+                cx, cy, a2, b2, c2, r, gg, bb, op, rx2, ry2 = f[:, k]
+                reach = torch.ones(npix, dtype=torch.bool)
+                if use_bbox:
+                    ok = {v: bool(strip_reaches(
+                        *rc, *np.float32([cx, cy, rx2, ry2])))
+                        for v, rc in rects.items()}
+                    reach = torch.tensor([ok[v] for v in warp.tolist()])
+                dx = px - cx
+                dy = cy - py
+                dx2, dy2 = dx * dx, dy * dy
+                power = a2 * dx2 + c2 * dy2 + b2 * (dx * dy)
+                alpha = torch.clamp(op * torch.exp(power),
+                                    max=cfg.alpha_clamp)
+                keep = (alpha >= cfg.alpha_min) & live[grp] & reach
+                if use_bbox:
+                    keep = keep & (dx2 <= rx2) & (dy2 <= ry2)
+                wgt = (alpha * tr)[:, None]
+                col = torch.where(keep[:, None],
+                                  col + wgt * torch.stack([r, gg, bb]), col)
+                tr = torch.where(keep, tr * (1.0 - alpha), tr)
+            gmax = torch.zeros(ng).scatter_reduce_(0, grp, tr, "amax",
+                                                   include_self=False)
+            live = live & (gmax >= gstop)
+            if not bool((tr >= cfg.alpha_min).any()):
+                break
+        out = [torch.clamp(col + tr[:, None] * bg, 0.0, 1.0)]
+        if cfg.alpha_channel:
+            out.append(torch.clamp(1.0 - tr, 0.0, 1.0)[:, None])
+        tile = torch.zeros((th, tw, nchan))
+        tile[ly, lx] = torch.cat(out, 1)
+        img[y0:y0 + th, x0:x0 + tw] = tile
+    return img[:h, :w], group_walked
 
 
 # ---- csrc/expand.cu: K1's block-wise owner search ----------------------

@@ -24,7 +24,9 @@ earlier argument list.  The helpers are those of ``train_probe``.
   and pixel group) and runs it through ``rasterize_tiles``: the span, when
   the split tiles' blocks start and end, and how busy the SMs are.
 * ``tune`` times the current K2 against variants of its source (and whole
-  other sources with the current argument list, ``--sources NAME=PATH``)
+  other sources with the current argument list, ``--sources NAME=PATH``;
+  ``--variants NAME ...`` builds only those; ``--subtile`` times the
+  kernel with ``subtile_exit`` on)
   and against other split thresholds, on both frames, in turns; and the
   device and host time of the work list built by PyTorch calls
   (``render/plan.py::_tile_plan``, the plan kernel's plain version), which
@@ -152,8 +154,12 @@ def old_raster(lib, bins, h, w, cfg, times=None):
 
 
 def old_expand(lib, first_slot, tx0, ty0, span_w, depth_bits, total, *,
-               k_cap: int, ntx: int, num_tiles: int):
-    """The earlier K1, with the arguments of ``expand_pair_keys``."""
+               k_cap: int, ntx: int, num_tiles: int, cull=None,
+               tile_wh=None):
+    """The earlier K1, with the arguments of ``expand_pair_keys`` (it has
+    no cull)."""
+    if cull is not None:
+        raise ValueError("the earlier K1 has no cull")
     keys = torch.empty((k_cap,), dtype=torch.int64, device=first_slot.device)
     owners = torch.empty_like(keys)
     err = lib.splat_expand_pairs(
@@ -255,13 +261,18 @@ def stamp() -> None:
 
 
 # variants of the current K2 source: (name, {old text: new text})
+_LAUNCH_BOUNDS = "__global__ void __launch_bounds__(THREADS) raster_kernel("
 _VARIANTS = (
-    ("blocks_4", {"__global__ void __launch_bounds__(THREADS) raster_kernel(":
-                  "__global__ void __launch_bounds__(THREADS, 4) "
-                  "raster_kernel("}),
-    ("blocks_5", {"__global__ void __launch_bounds__(THREADS) raster_kernel(":
-                  "__global__ void __launch_bounds__(THREADS, 5) "
-                  "raster_kernel("}),
+    ("blocks_4", {_LAUNCH_BOUNDS: "__global__ void __launch_bounds__("
+                                  "THREADS, 4) raster_kernel("}),
+    ("blocks_5", {_LAUNCH_BOUNDS: "__global__ void __launch_bounds__("
+                                  "THREADS, 5) raster_kernel("}),
+    # the grouped walk's 4-px kernel at the registers it wants (80: 3
+    # blocks an SM)
+    ("subtile_blocks_3", {
+        "__global__ void __launch_bounds__(THREADS, 4) raster_kernel_subtile4(":
+            "__global__ void __launch_bounds__(THREADS) "
+            "raster_kernel_subtile4("}),
     # every staged pair walked by every warp: what the strip test saves
     ("no_strip_skip", {
         "ql < hi && (!a.use_bbox || strip_reaches(st, smem[3 * ql])));":
@@ -269,7 +280,7 @@ _VARIANTS = (
     # the exit voted by each block alone: what the votes across the cluster
     # cost (wrong images where a split tile exits early; a timing only)
     ("no_cluster_vote", {
-        "    if constexpr (CLUSTER) {\n      // The tile goes on":
+        "    if constexpr (VOTES) {\n      // The tile goes on":
             "    if constexpr (false) {\n      // The tile goes on"}),
     # the votes as a release store and acquire loads at cluster scope: what
     # their fences cost
@@ -314,20 +325,24 @@ def load_source(name: str, path: pathlib.Path) -> ctypes.CDLL:
                     RASTER_ENTRIES)
 
 
-def tune(thresholds, sources) -> None:
+def tune(thresholds, sources, variants=None, subtile: bool = False) -> None:
     from splat_tpu_torch.render import plan
     from splat_tpu_torch.render.kernels import rasterize_tiles
     dev = torch.device("cuda", 0)
     real = _build.library()
     libs = {"current": real}
     for name, subs in _VARIANTS:
-        libs[name] = tp.load_variant(name, subs, "raster.cu", RASTER_ENTRIES)
+        if variants is None or name in variants:
+            libs[name] = tp.load_variant(name, subs, "raster.cu",
+                                         RASTER_ENTRIES)
     for spec in sources:
         name, path = spec.split("=", 1)
         libs[name] = load_source(name, pathlib.Path(path))
     default = plan.SPLIT_MIN_PAIRS
     for kind in ("random", "surface"):
         bins, cfg, h, w = tp.frame(kind, dev)
+        # the pairs do not depend on the exit: the same bins either way
+        cfg = dataclasses.replace(cfg, subtile_exit=subtile)
 
         def timed(lib, thr):
             _build._lib = lib
@@ -343,7 +358,7 @@ def tune(thresholds, sources) -> None:
 
         runs = [(name, default) for name in libs] + [
             ("current", t) for t in thresholds if t != default]
-        rec = {"frame": kind, **_plan_cost(bins)}
+        rec = {"frame": kind, "subtile_exit": subtile, **_plan_cost(bins)}
         for name, thr in runs + runs[::-1]:     # in turns, there and back
             rec.setdefault(f"{name}@{thr}", []).append(timed(libs[name], thr))
         print(json.dumps(rec), flush=True)
@@ -433,6 +448,10 @@ def main(argv=None) -> int:
                     default=[2048, 8192, 16384])
     ap.add_argument("--sources", nargs="*", default=[],
                     metavar="NAME=PATH")
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help="tune: build only these source variants")
+    ap.add_argument("--subtile", action="store_true",
+                    help="tune: time K2 with subtile_exit on")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("raster_probe: no CUDA device")
@@ -445,7 +464,7 @@ def main(argv=None) -> int:
     elif args.what == "stamp":
         stamp()
     elif args.what == "tune":
-        tune(args.thresholds, args.sources)
+        tune(args.thresholds, args.sources, args.variants, args.subtile)
     else:
         compare(args.old_raster, args.old_expand, args.rounds, args.frames)
     return 0

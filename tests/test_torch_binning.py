@@ -21,7 +21,8 @@ from splat_tpu_torch.render.expand import (expand_pair_keys,
                                            expand_pair_keys_plain)
 from splat_tpu_torch.render.diff import (rasterize_train_bwd,
                                          rasterize_train_fwd)
-from splat_tpu_torch.render.kernels import rasterize_tiles
+from splat_tpu_torch.render.kernels import (rasterize_tiles,
+                                            rasterize_tiles_plain)
 
 torch.set_num_threads(1)
 
@@ -236,3 +237,175 @@ def test_expand_block_ranges_match_plain(cap, sizes):
         g, rounds = emulate.multiway_upper_bound(first, k, ways)
         assert g == int(np.searchsorted(first, k, side="right"))
         assert rounds <= 2                    # n <= 128^2
+
+
+# ---- cull_pairs: K1's dead-pair cull -------------------------------------
+
+
+def _culled(lay):
+    """The slots the cull dropped: (owner, tile) of each, from the plain
+    expansion with and without the cull."""
+    keys, _ = lay.expand(expand_pair_keys_plain)
+    keys0, owners0 = dataclasses.replace(lay, cull=None).expand(
+        expand_pair_keys_plain)
+    sentinel = (lay.tiles_x * lay.tiles_y) << 32
+    dead = (keys == sentinel) & (keys0 != sentinel)
+    return owners0[dead], keys0[dead] >> 32
+
+
+def _alpha_at_tile(proj, owners, tiles, lay, cfg):
+    """The raster kernel's f32 alpha of each (owner, tile) at every pixel
+    of the tile (rows: pairs)."""
+    tw, th = lay.tile_wh
+    lin = torch.arange(tw * th)
+    px = ((tiles % lay.tiles_x)[:, None] * tw + lin % tw).float()
+    py = ((tiles // lay.tiles_x)[:, None] * th + lin // tw).float()
+    cx, cy = (proj.center_px[owners, q][:, None] for q in (0, 1))
+    a2, b2, c2 = (-0.5 * proj.conic[owners, 0][:, None],
+                  -proj.conic[owners, 1][:, None],
+                  -0.5 * proj.conic[owners, 2][:, None])
+    dx, dy = px - cx, cy - py
+    power = a2 * (dx * dx) + c2 * (dy * dy) + b2 * (dx * dy)
+    op = proj.opacity[owners][:, None]
+    return torch.clamp(op * torch.exp(power), max=cfg.alpha_clamp)
+
+
+def test_cull_drops_only_pairs_no_pixel_keeps():
+    """Random screen-space splats, thin ones among them, many near the cut:
+    at every pixel of every culled pair's tile the raster kernel's own f32
+    alpha is below alpha_min, and the bad splats are never culled."""
+    rng = np.random.default_rng(3)
+    n, h, w = 3000, 96, 128
+    f32 = np.float32
+    # covariance from random axes, 0.3..30 px, aspect up to 1:1000
+    sig = rng.uniform(0.3, 30.0, n)
+    aspect = np.where(rng.random(n) < 0.2, 1e-3, rng.uniform(0.2, 1.0, n))
+    th_ = rng.uniform(0, np.pi, n)
+    c, s = np.cos(th_), np.sin(th_)
+    l1, l2 = sig ** 2, (sig * aspect) ** 2 + 0.3
+    cov = np.stack([c * c * l1 + s * s * l2, c * s * (l1 - l2),
+                    s * s * l1 + c * c * l2], 1)
+    det = cov[:, 0] * cov[:, 2] - cov[:, 1] ** 2
+    conic = np.stack([cov[:, 2], -cov[:, 1], cov[:, 0]], 1) / det[:, None]
+    centre = rng.uniform(-40, [w + 40, h + 40], (n, 2))
+    op = rng.uniform(0.002, 1.0, n)
+    radius = 3.0 * np.sqrt(np.stack([cov[:, 0], cov[:, 2]], 1))
+    proj = stt.ops.projection.ProjectedGaussians(
+        depth=torch.tensor(rng.uniform(1, 5, n), dtype=torch.float32),
+        center_px=torch.tensor(centre.astype(f32)),
+        conic=torch.tensor(conic.astype(f32)),
+        radius_px=torch.tensor(radius.astype(f32)),
+        color=torch.full((n, 3), 0.5), opacity=torch.tensor(op.astype(f32)),
+        visible=torch.ones(n, dtype=torch.bool))
+    # the splats the cull must leave alone: NaN/inf fields, far centres
+    bad = {0: ("center_px", 0, np.nan), 1: ("conic", 1, np.inf),
+           2: ("opacity", None, np.nan), 3: ("center_px", 1, 2e6)}
+    for g, (field, col, v) in bad.items():
+        t = getattr(proj, field)
+        if col is None:
+            t[g] = v
+        else:
+            t[g, col] = v
+    cfg = stt.RenderConfig(tile_px=16, max_dup_factor=64.0, cull_pairs=True)
+    rows = binning.cull_rows(proj, cfg.alpha_min)
+    assert bool(torch.isinf(rows[list(bad), 3]).all())
+    lay = binning.slot_layout(proj, h, w, cfg)
+    assert int(lay.total[0]) <= lay.k_cap
+    owners, tiles = _culled(lay)
+    assert owners.numel() > 1000
+    assert not set(owners.tolist()) & set(bad)
+    alpha = _alpha_at_tile(proj, owners, tiles, lay, cfg)
+    assert float(alpha.max()) < cfg.alpha_min
+
+
+@pytest.mark.parametrize("fn", [expand_pair_keys, expand_pair_keys_plain],
+                         ids=["wrapper", "plain"])
+def test_cull_needs_the_tile_size(fn):
+    """The cull tests a pair against its tile's pixel rectangle, so it takes
+    the tile size from the caller every time: no default to go stale."""
+    cfg = stt.RenderConfig(tile_px=16, cull_pairs=True)
+    scene = stt.random_scene(64, seed=1, device="cpu")
+    cam = stt.Camera.create(h=48, w=64, position=(0.0, 0.0, 4.0),
+                            device="cpu")
+    lay = binning.slot_layout(project_gaussians(scene, cam, cfg), 48, 64,
+                              cfg)
+    assert lay.tile_wh == (16, 16)
+    args = (lay.first_slot, lay.tx0, lay.ty0, lay.span_w, lay.depth_bits,
+            lay.total)
+    kw = dict(k_cap=lay.k_cap, ntx=lay.tiles_x,
+              num_tiles=lay.tiles_x * lay.tiles_y)
+    with pytest.raises(ValueError, match="tile_wh"):
+        fn(*args, **kw, cull=lay.cull)
+    keys, _ = fn(*args, **kw, cull=lay.cull, tile_wh=lay.tile_wh)
+    assert torch.equal(keys, lay.expand()[0])
+
+
+@pytest.fixture(scope="module")
+def big_splats():
+    """Big splats (radii of tens of pixels) that overlap many tiles past
+    their kill radius, with splat_tpu's cull_pairs image (Pallas kernels,
+    interpret mode): no tile saturates, so every tile walks its range."""
+    from splat_tpu.render.tiled import render_tiled as jax_render_tiled
+    js = st.random_scene(256, seed=5, extent=0.8, scale_range=(0.3, 0.8))
+    kw = dict(h=128, w=128, position=(0.0, 0.0, 3.0))
+    cfg_kw = dict(chunk=64, max_dup_factor=16.0, cull_pairs=True)
+    want = np.asarray(jax_render_tiled(js, st.Camera.create(**kw),
+                                       st.RenderConfig(**cfg_kw),
+                                       interpret=True))
+    ts = stt.GaussianScene.from_numpy(js.to_numpy(), device="cpu")
+    return ts, stt.Camera.create(**kw, device="cpu"), cfg_kw, want
+
+
+def test_cull_pairs_image_equals_no_cull_and_splat_tpu(big_splats):
+    ts, cam, cfg_kw, want = big_splats
+    cfg = stt.RenderConfig(**cfg_kw)
+    cfg0 = dataclasses.replace(cfg, cull_pairs=False)
+    img, stats = stt.render_tiled(ts, cam, cfg, return_stats=True)
+    img0, stats0 = stt.render_tiled(ts, cam, cfg0, return_stats=True)
+    # pairs are culled; capacity and overflow count them, num_pairs not
+    culled = int(stats0["num_pairs"]) - int(stats["num_pairs"])
+    assert culled > 50
+    assert int(stats["overflow"]) == int(stats0["overflow"]) == 0
+    pairs = binning.count_pairs(project_gaussians(ts, cam, cfg), 128, 128,
+                                cfg)[1]
+    assert int(pairs) == int(stats0["num_pairs"])
+    assert stt.pair_stats(ts, cam, cfg)["num_pairs"] == int(pairs)
+    # every tile walks its whole range here, so the culled pairs, which no
+    # pixel keeps, change nothing: the image, bit for bit
+    bins0 = binning.build_tile_bins(project_gaussians(ts, cam, cfg0), 128,
+                                    128, cfg0)
+    _, walked = rasterize_tiles_plain(bins0, 128, 128, cfg0,
+                                      return_walked=True)
+    assert torch.equal(walked, (bins0.tile_end - bins0.tile_start).long())
+    assert torch.equal(img, img0)
+    # splat_tpu's cull (8-px quantized) keeps more pairs, but no pixel
+    # keeps them either: the bar of test_torch_render.py
+    assert stt.psnr(img, torch.from_numpy(want.copy())) >= 50.0
+
+
+def test_cull_pairs_with_early_exits():
+    """Where tiles saturate, removing dead pairs moves K2's batch
+    boundaries, so a tile may stop a batch earlier or later: its pixels
+    then differ by what they composite below T < alpha_min.  Tiles that
+    walk their whole range match bit for bit."""
+    ts = stt.random_scene(256, seed=5, extent=0.8, scale_range=(0.4, 1.0),
+                          device="cpu")
+    cam = stt.Camera.create(h=128, w=128, position=(0.0, 0.0, 2.5),
+                            device="cpu")
+    cfg0 = stt.RenderConfig(chunk=64, max_dup_factor=16.0)
+    cfg = dataclasses.replace(cfg0, cull_pairs=True)
+    proj = project_gaussians(ts, cam, cfg0)
+    bins0 = binning.build_tile_bins(proj, 128, 128, cfg0)
+    bins = binning.build_tile_bins(proj, 128, 128, cfg)
+    assert int(bins.num_pairs) < int(bins0.num_pairs)
+    img0, walked0 = rasterize_tiles_plain(bins0, 128, 128, cfg0,
+                                          return_walked=True)
+    img, walked = rasterize_tiles_plain(bins, 128, 128, cfg,
+                                        return_walked=True)
+    full = ((walked0 == (bins0.tile_end - bins0.tile_start))
+            & (walked == (bins.tile_end - bins.tile_start)))
+    assert 0 < int(full.sum()) < full.numel()
+    diff = (img - img0).abs().amax(dim=-1)                # (H, W)
+    tile = (torch.arange(128)[:, None] // 32) * 4 + torch.arange(128) // 32
+    assert float(diff.max()) < cfg.alpha_min
+    assert float(diff[full[tile]].max()) == 0.0

@@ -200,6 +200,113 @@ def test_raster_kernel_staggered_exit_equals_plain(dev, chunk):
         assert float((other - img_p)[:, :32].abs().max()) > 1e-3, d
 
 
+# ---- subtile_exit: K2's per-group exit; cull_pairs: K1's cull ----------
+
+# config (subtile_exit on, every tile heavy) -> what the case covers; on
+# the "deep" frame of _train_frame, whose tiles saturate group by group
+_SUBTILE_RASTER_CASES = {
+    "t32_split": dict(),                          # 4 px a thread; split tiles
+    "t16_rgba": dict(tile_px=16, chunk=64, alpha_channel=True,
+                     background=(0.3, 0.2, 0.1)),  # 1 px a thread
+    "t32x16_sigma_inf": dict(tile_py=16, sigma_cutoff=math.inf),  # 2
+    "t64": dict(tile_px=64, chunk=256),           # 16: 4 groups a warp
+    "t64x128": dict(tile_px=64, tile_py=128),     # 8192 px: 2 blocks a tile
+    "t24x16_whole": dict(tile_px=24, tile_py=16),  # no 16-px groups
+}
+
+
+@pytest.mark.parametrize("case", list(_SUBTILE_RASTER_CASES))
+def test_raster_subtile_kernel_equals_plain(dev, case):
+    h, w = 200, 300
+    kw = dict(subtile_exit=True, subtile_heavy_pairs=0,
+              **_SUBTILE_RASTER_CASES[case])
+    cfg, bins = _train_frame(dev, (kw, "deep"), h, w)
+    grouped = kernels.group_grid(cfg.tile_w, cfg.tile_h, True) is not None
+    before = (rasterize_tiles.launches, rasterize_tiles.subtile_launches)
+    img = rasterize_tiles(bins, h, w, cfg)
+    assert (rasterize_tiles.launches, rasterize_tiles.subtile_launches) == (
+        before[0] + 1, before[1] + int(grouped))
+    split = int(rasterize_tiles.split_tiles)
+    img_p, walked, gw = rasterize_tiles_plain(bins, h, w, cfg,
+                                              return_walked=True,
+                                              return_group_walked=True)
+    torch.cuda.synchronize()
+    assert img.shape == img_p.shape
+    assert float((img - img_p).abs().max()) <= 1e-4
+    whole = rasterize_tiles(bins, h, w, dataclasses.replace(
+        cfg, subtile_exit=False))
+    if not grouped:   # the kernel as it was, bit for bit
+        assert torch.equal(img, whole)
+        return
+    # groups of a tile stopped at different batches, so the image is not
+    # the whole-tile one: the exit above is the per-group one.  A group
+    # stops only below T < alpha_min / 4096, so the image stays within
+    # splat_tpu's subtile tolerance (tests/test_tiled.py) of the whole-tile
+    # one
+    stopped = gw < walked[:, None]
+    assert bool(stopped.any())
+    assert not torch.equal(img, whole)
+    assert float((img - whole).abs().max()) <= 1e-6
+    if case == "t32_split":       # ... on tiles split across blocks
+        pairs = (bins.tile_end - bins.tile_start).long()
+        assert split > 0
+        assert bool((stopped.any(dim=1) & (pairs > SPLIT_MIN_PAIRS)).any())
+
+
+def test_raster_subtile_staggered_groups_equal_model(dev):
+    """The staggered frame of the split-tile test, every tile on the
+    grouped walk: tile 0's top groups saturate within a few batches and
+    its bottom ones only at the flat splats; each group stops on its own,
+    in the kernel, its plain version and its model alike."""
+    kw = dict(counts=(4500, 4300), fade=3064, fade_opacity=0.05, c2=-0.002,
+              h=32)
+    bins, h, w, cfg = emulate.saturating_frame(64, True, device=dev, **kw)
+    cfg = dataclasses.replace(cfg, subtile_exit=True, subtile_heavy_pairs=0)
+    img = rasterize_tiles(bins, h, w, cfg)
+    assert int(rasterize_tiles.split_tiles) == 2
+    img_p, walked, gw = rasterize_tiles_plain(bins, h, w, cfg,
+                                              return_walked=True,
+                                              return_group_walked=True)
+    torch.cuda.synchronize()
+    assert float((img - img_p).abs().max()) <= 1e-4
+    # groups that stop thousands of pairs before others of their tile
+    assert bool(((gw.max(dim=1).values - gw.min(dim=1).values)
+                 > 1000).all())
+    cpu_bins = emulate.saturating_frame(64, True, **kw)[0]
+    img_m, gw_m = emulate.grouped_composite(cpu_bins, h, w, cfg, 1, 4)
+    assert torch.equal(gw_m, gw.cpu())
+    assert float((img.cpu() - img_m).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dup", [16.0, 1.0], ids=["room", "overflow"])
+def test_expand_cull_kernel_equals_plain(dev, dup):
+    """K1's cull variant against its plain version on big splats (many
+    pairs past their kill radius): the same keys and owners, so the same
+    pairs culled and kept; the cull's never-cull rows among them."""
+    cfg = stt.RenderConfig(max_dup_factor=dup, cull_pairs=True)
+    scene = stt.random_scene(3000, seed=5, extent=1.5,
+                             scale_range=(0.05, 0.4), device=dev)
+    cam = stt.Camera.create(h=200, w=300, position=(0.0, 0.0, 4.0),
+                            device=dev)
+    proj = project_gaussians(scene, cam, cfg)
+    lay = binning.slot_layout(proj, 200, 300, cfg)
+    cull = lay.cull.clone()
+    cull[::5, 3] = math.inf                 # never cull every fifth
+    lay = dataclasses.replace(lay, cull=cull)
+    before = (expand_pair_keys.launches, expand_pair_keys.cull_launches)
+    keys, owners = lay.expand()
+    assert (expand_pair_keys.launches, expand_pair_keys.cull_launches) == (
+        before[0] + 1, before[1] + 1)
+    keys_p, owners_p = lay.expand(expand_pair_keys_plain)
+    assert torch.equal(keys, keys_p) and torch.equal(owners, owners_p)
+    keys0, _ = dataclasses.replace(lay, cull=None).expand()
+    sentinel = (lay.tiles_x * lay.tiles_y) << 32
+    culled = (keys == sentinel) & (keys0 != sentinel)
+    assert int(culled.sum()) > 20
+    assert int((keys != sentinel).sum()) + int(culled.sum()) == min(
+        int(lay.total[0]), lay.k_cap)
+
+
 def test_strip_test_on_card_equals_model(dev):
     """``strip_reaches`` as compiled for the card against its Python model
     on the same strips and boxes: centres on pixel boundaries, saturated

@@ -203,8 +203,10 @@ def test_k4_plain_matches_autograd_of_k3_plain(case):
     dict(render_mode="depth"),              # needs an explicit range
     dict(binning_key="rank"),
     dict(cull_pairs=True),
+    dict(subtile_exit=True),
     dict(transmit_mxu=False),
-], ids=["depth_no_range", "rank", "cull_pairs", "transmit_vpu"])
+], ids=["depth_no_range", "rank", "cull_pairs", "subtile_exit",
+        "transmit_vpu"])
 def test_config_restrictions(bad):
     scene = stt.random_scene(10, seed=0, device="cpu")
     cam = stt.Camera.create(h=32, w=32, position=(0.0, 0.0, 4.0),

@@ -88,9 +88,13 @@ def test_config_mirrors_reference_validation():
             st.RenderConfig(**kw)
         with pytest.raises(ValueError):
             stt.RenderConfig(**kw)
-    for kw in ({"subtile_exit": True}, {"cull_pairs": True}):
-        with pytest.raises(NotImplementedError):
-            stt.RenderConfig(**kw)
+    # the two knobs that change how K1 and K2 walk their pairs construct
+    # in both packages (render_tiled_diff refuses them in both)
+    for kw in ({"subtile_exit": True, "subtile_heavy_pairs": 0},
+               {"cull_pairs": True}):
+        got, want = stt.RenderConfig(**kw), st.RenderConfig(**kw)
+        for k, v in kw.items():
+            assert getattr(got, k) == getattr(want, k) == v
 
 
 @pytest.mark.parametrize("tile_px, tile_py, chunk, ok", [

@@ -161,6 +161,8 @@ def _references(inp, proj):
         h=H, w=H, position=(0.0, 0.0, 4.0), device="cpu"), 4, yaw_sweep=0.6)
     ref["tiled"] = np.stack([stt.render_tiled(scene, c).numpy()
                              for c in views])
+    ref["tiled_knobs"] = stt.render_tiled(scene, views[0], stt.RenderConfig(
+        cull_pairs=True, subtile_exit=True, subtile_heavy_pairs=0)).numpy()
     ref["dense"] = np.stack([stt.render_dense(scene, c).numpy()
                              for c in views])
 
@@ -311,6 +313,18 @@ def test_sharded_render(world, mesh, path):
         if path in ("gather", "a2a", "gather_batch", "a2a_batch"):
             assert int(out[f"{mesh}_{path}_ov"]) == 0
         np.testing.assert_array_equal(got, outs[0][f"{mesh}_{path}"])
+
+
+def test_sharded_render_with_cull_and_subtile_exit(world):
+    """render_sharded_tiled at g = 2 with cull_pairs and subtile_exit on
+    (every tile on the grouped walk): the slabs reach both knobs through
+    the single-device binning and compositing, and agree with the
+    single-device render under the same knobs, as _close_to_port holds."""
+    _, ref, outs = world
+    for out in outs:
+        _close_to_port(out["2x2_knobs"], ref["tiled_knobs"])
+        np.testing.assert_array_equal(out["2x2_knobs"], outs[0]["2x2_knobs"])
+    _close_to_port(ref["tiled_knobs"], ref["tiled"][0])
 
 
 @pytest.mark.parametrize("mesh", MESHES)

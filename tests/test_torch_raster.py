@@ -2,6 +2,7 @@
 Pallas raster kernel in interpret mode on the SAME pair lists: the JAX
 binning's packed feature table is decoded into the port's f32 rows (CPU)."""
 
+import dataclasses
 import math
 
 import numpy as np
@@ -16,7 +17,9 @@ from splat_tpu.render.kernels import rasterize_tiles as jax_raster
 from splat_tpu_torch import RenderConfig
 from splat_tpu_torch.render import emulate
 from splat_tpu_torch.render.binning import FEATURE_ROWS, TileBins
-from splat_tpu_torch.render.kernels import rasterize_tiles_plain
+from splat_tpu_torch.render.kernels import (GROUP_H, GROUP_STOP_SHIFT,
+                                            GROUP_W, group_grid,
+                                            rasterize_tiles_plain)
 from splat_tpu_torch.utils.image import psnr
 
 torch.set_num_threads(1)
@@ -206,3 +209,138 @@ def test_plan_names_still_import_from_diff():
     assert plan.PLAN_BUCKETS == emulate.define("raster_common.cuh",
                                                "PLAN_BUCKETS")
     assert plan.THREADS == emulate.define("raster_common.cuh", "THREADS")
+
+
+# ---- subtile_exit: the per-group exit against splat_tpu's ----------------
+
+# splat_tpu's tests/test_tiled.py holds its subtile_exit image to the
+# whole-tile one at this tolerance
+SUBTILE_ATOL = 1e-6
+SH = SW = 128           # a 4 x 4 grid of 32-px tiles
+_SUBTILE_CASES = {
+    "default_heavy_pairs": dict(subtile_exit=True),
+    "heavy_pairs_0": dict(subtile_exit=True, subtile_heavy_pairs=0),
+    # 24 px do not divide into 16-px groups: the whole-tile exit
+    "tile_24x16": dict(subtile_exit=True, subtile_heavy_pairs=0, tile_px=24,
+                       tile_py=16),
+}
+
+
+@pytest.fixture(scope="module")
+def subtile_frames():
+    """One surface frame (opaque surface over open background, where the
+    groups of a tile saturate apart), binned by splat_tpu for each tile
+    size, with splat_tpu's images (Pallas kernel, interpret mode): each
+    case's subtile_exit image and the whole-tile one.  With every tile
+    heavy, splat_tpu's phase compaction runs on it: one tile there drops
+    to its last live group at its 8th window and walks on with that one."""
+    from splat_tpu.utils.fixtures import surface_scene
+    scene = surface_scene(2000, seed=2)
+    cam = st.Camera.create(h=SH, w=SW, position=(0.0, -0.5, 2.5), yaw=0.2)
+    proj = jax_project(scene, cam, st.RenderConfig(chunk=64))
+    out, bins = {}, {}
+    for name, kw in _SUBTILE_CASES.items():
+        jcfg = st.RenderConfig(chunk=64, **kw)
+        tile = (jcfg.tile_w, jcfg.tile_h)
+        if tile not in bins:       # the pairs do not depend on the exit
+            bins[tile] = jax_bins(proj, SH, SW, jcfg)
+        out[name] = (_port_bins(bins[tile]), np.asarray(
+            jax_raster(bins[tile], SH, SW, jcfg, interpret=True)))
+    jb = bins[(32, 32)]
+    out["whole"] = np.asarray(jax_raster(jb, SH, SW, st.RenderConfig(
+        chunk=64), interpret=True))
+    return out
+
+
+@pytest.mark.parametrize("case", list(_SUBTILE_CASES))
+def test_subtile_exit_matches_splat_tpu(subtile_frames, case):
+    """The plain version's per-group exit against splat_tpu's on the same
+    pairs.  Both stop a group only once its pixels are saturated, but at
+    different points: splat_tpu checks its groups every 8 windows and,
+    once at most 4 are live, walks those on until all of them have
+    T < alpha_min, so its image may leave the whole-tile one by up to
+    alpha_min (1.1e-3 on this frame); the port stops a group once its
+    pixels have T < alpha_min / 4096, so its image stays within
+    SUBTILE_ATOL of splat_tpu's whole-tile image.  Where splat_tpu's own
+    grouped walk kept to its whole-tile image, the two subtile images
+    agree at SUBTILE_ATOL; elsewhere within alpha_min."""
+    bins, want = subtile_frames[case]
+    ref_whole = subtile_frames["whole"]
+    cfg = RenderConfig(chunk=64, **_SUBTILE_CASES[case])
+    grid = group_grid(cfg.tile_w, cfg.tile_h, True)
+    got, walked, gw = rasterize_tiles_plain(bins, SH, SW, cfg,
+                                            return_walked=True,
+                                            return_group_walked=True)
+    whole = rasterize_tiles_plain(bins, SH, SW, dataclasses.replace(
+        cfg, subtile_exit=False)).numpy()
+    got = got.numpy()
+    assert got.shape == want.shape == (SH, SW, 3)
+    ng = 1 if grid is None else grid[0] * grid[1]
+    assert gw.shape == (walked.numel(), ng)
+    assert bool((gw <= walked[:, None]).all())
+    diff = np.abs(got - want)
+    if case == "heavy_pairs_0":
+        # splat_tpu's compaction stopped groups early (its image left the
+        # whole-tile one), and so did the port's groups
+        ref_own = np.abs(want - ref_whole).max(axis=-1)
+        assert ref_own.max() > 100 * SUBTILE_ATOL
+        assert int((gw < walked[:, None]).sum()) > 0
+        assert not np.array_equal(got, whole)
+        np.testing.assert_allclose(got, ref_whole, atol=SUBTILE_ATOL, rtol=0)
+        np.testing.assert_allclose(got, whole, atol=SUBTILE_ATOL, rtol=0)
+        assert diff[ref_own <= SUBTILE_ATOL].max() <= SUBTILE_ATOL
+        assert diff.max() < cfg.alpha_min
+    else:
+        # no tile is heavy (default: none holds 8192 pairs) or none
+        # divides into groups: the whole-tile image, bit for bit, and
+        # splat_tpu's at SUBTILE_ATOL
+        pairs = (bins.tile_end - bins.tile_start).long()
+        assert case == "tile_24x16" or int(pairs.max()) <= 8192
+        assert not bool((gw < walked[:, None]).any())
+        np.testing.assert_array_equal(got, whole)
+        assert diff.max() <= SUBTILE_ATOL
+
+
+@pytest.mark.parametrize("ppt,blocks", [(4, 1), (1, 4)],
+                         ids=["one_block", "split_4"])
+def test_grouped_walk_model_equals_plain(ppt, blocks):
+    """The kernel's grouped walk (the group-by-group layout, a warp's
+    groups, the tile's blocks voting on its end) as render/emulate.py
+    models it,
+    on a frame whose groups saturate at different batches: the same
+    image and the same pairs walked by each group as the plain version."""
+    bins, h, w, cfg = emulate.saturating_frame(64, True)
+    cfg = dataclasses.replace(cfg, subtile_exit=True, subtile_heavy_pairs=0)
+    want, walked, gw = rasterize_tiles_plain(bins, h, w, cfg,
+                                             return_walked=True,
+                                             return_group_walked=True)
+    got, gw_m = emulate.grouped_composite(bins, h, w, cfg, ppt, blocks)
+    assert torch.equal(gw_m, gw)
+    # groups stop at different batches, the last with its tile
+    for t in range(gw.shape[0]):
+        assert len(set(gw[t].tolist())) > 1
+        assert int(gw[t].max()) == int(walked[t])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("tw,th", [(32, 32), (32, 16), (16, 16), (48, 40),
+                                   (64, 128)])
+def test_group_strip_holds_its_pixels(tw, th):
+    """A warp's strip in the grouped layout holds every pixel of its slots
+    (the strip test may pass more pairs than its pixels keep, never
+    fewer), and the layout takes each pixel of the tile once."""
+    lx, ly = emulate.group_layout(tw, th)
+    npix = tw * th
+    assert sorted((ly * tw + lx).tolist()) == list(range(npix))
+    for ppt in (1, 2, 4, 8, 16):
+        for pa in range(0, npix, 32 * ppt):
+            pb = min(pa + 32 * ppt, npix) - 1
+            xa, xb, ya, yb = emulate.group_strip(pa, pb, tw)
+            x, y = lx[pa:pb + 1], ly[pa:pb + 1]
+            assert bool(((x >= xa) & (x <= xb) & (y >= ya)
+                         & (y <= yb)).all()), (ppt, pa)
+            if ppt <= 4:      # within one group: the rows it holds
+                assert (xb - xa + 1) * (yb - ya + 1) == pb - pa + 1
+    assert (GROUP_W, GROUP_H, GROUP_STOP_SHIFT) == tuple(
+        emulate.define("raster.cu", name)
+        for name in ("GROUP_W", "GROUP_H", "GROUP_STOP_SHIFT"))

@@ -96,6 +96,12 @@ def renders(inp, out: dict, rank: int) -> None:
         out[f"{t}_empty_dense"] = torch.stack([
             sharding.render_sharded(empty, cam, mesh, bg_cfg),
             sharding.render_batch_sharded(empty, views, mesh, bg_cfg)[2]])
+        if shape == (2, 2):
+            # g = 2 with both of K1's and K2's walk knobs on
+            out[f"{t}_knobs"] = sharding.render_sharded_tiled(
+                local, cam, mesh, stt.RenderConfig(
+                    cull_pairs=True, subtile_exit=True,
+                    subtile_heavy_pairs=0))[0]
         out[f"{t}_depth_raises"] = raises(
             lambda: sharding.render_sharded_tiled(
                 local, cam, mesh, stt.RenderConfig(render_mode="depth")),
