@@ -22,7 +22,8 @@ Phases (any failure raises and exits non-zero):
   4. the inference path with every launch counter at 0: ``render()`` of
      the committed fitted 20k-splat scene (>= 45 dB against the dense
      renderer), then ``render()`` and a timed yaw sweep of 1M random and
-     1M surface gaussians @1920x1080 with overflow 0;
+     1M surface gaussians @1920x1080 with overflow 0, each scene packed
+     by ``pack_device()`` as the repo's bench.py packs it;
   5. K1 and K2 must have launched during phase 4;
   6. the training path with every launch counter at 0: the fitted-20k
      recipe of scripts/make_fitted_scene.py (surface_scene(20_000), 4
@@ -84,6 +85,19 @@ Phases (any failure raises and exits non-zero):
      and to ``render_tiled``), ``render_tiled`` with both, a 2-way slab
      split with both (within alpha_min of it), and yaw sweeps of each
      setting in turns.  Prints a ``{"knobs": ...}`` JSON line.
+  11. the feature-major scene (``pack_device()``, one (59, N) buffer) at
+     the 1M random and surface frames @1920x1080: the pack's time and its
+     fields equal to the scene's; ``project_gaussians`` on both layouts,
+     its time with CUDA events (PROJ_REPS calls behind the spinning
+     kernel), its device-busy time and CUDA kernels a call from
+     ``torch.profiler``; ``render_tiled`` on both layouts equal bit for
+     bit, overflow 0; ``stt.render`` of a ``GaussianScene`` packing once
+     over 3 frames and equal to ``render_tiled`` of the pack, with K1 and
+     K2 launched once a frame, counted from 0; yaw sweeps of both layouts
+     in turns (unpacked, packed, packed, unpacked).  Phase 9 adds
+     ``render_sharded_tiled`` at world size 1 of the packed scene's
+     shard, by both routes, equal bit for bit to the unpacked shard's.
+     Prints a ``{"packed": ...}`` JSON line.
 The second-to-last line is a JSON object describing each kernel, with its
 bound (the least time the card could take for its work on these inputs:
 bytes over the memory rate, FP32 operations over the FP32 rate, or
@@ -139,6 +153,10 @@ FIT_LOSS_RTOL = 1e-5
 # tolerance tests/test_tiled.py holds splat_tpu's to (a group stops only
 # once its pixels have T < alpha_min / 4096, so it leaves out less)
 SUBTILE_ATOL = 1e-6
+# phase 11: projections timed with CUDA events, profiled, and packs timed
+PROJ_REPS = 20
+PROFILE_REPS = 5
+PACK_REPS = 5
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
 # HBM bytes per second, and FP32 operations per second outside the tensor
 # cores.
@@ -465,13 +483,14 @@ def main_path(device) -> None:
     cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
     for kind in ("random", "surface"):
         scene, dup = bench_scene(kind, N_BIG, device)
+        scene = scene.pack_device()              # as bench.py packs it
         cfg = stt.RenderConfig(max_dup_factor=dup)
         img = stt.render(scene, cam, cfg)        # raises on overflow
         require(img.shape == (H, W, 3) and bool(torch.isfinite(img).all()),
                 f"{kind}: bad shape or non-finite values")
         r = chained_bench(scene, cam, cfg, SWEEP_FRAMES)
         require(r["overflow"] == 0, f"{kind}: overflow {r['overflow']}")
-        print(f"[main] {kind} {N_BIG} @{W}x{H} dup {dup}: "
+        print(f"[main] {kind} {N_BIG} @{W}x{H} dup {dup}, packed: "
               f"{r['ms_per_frame']:.3f} ms/frame ({r['fps']:.2f} FPS, "
               f"{SWEEP_FRAMES}-frame yaw sweep, CUDA events); "
               f"pairs={r['num_pairs']} visible={r['visible']} "
@@ -812,7 +831,8 @@ def cli_and_viewer(device, kernels) -> dict:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with torch.inference_mode():
-                img, st = render_tiled(scene, c, cfg, return_stats=True)
+                img, st = render_tiled(scene.pack_device(), c, cfg,
+                                       return_stats=True)
                 int(st["overflow"])
                 (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(
                     torch.uint8).cpu().numpy()
@@ -954,6 +974,8 @@ def parallel_path(device, kernels) -> dict:
                 return out
 
             psnr = {}
+            plocal = sharding.shard_scene(scene.pack_device(), mesh)
+            res["packed_equal"] = {}
             for route in ("gather", "a2a"):
                 img, ov = counted(
                     f"render_sharded_tiled_{route}",
@@ -961,6 +983,15 @@ def parallel_path(device, kernels) -> dict:
                         local, cam, mesh, cfg, route=route))
                 require(int(ov) == 0, f"sharded {route}: overflow {int(ov)}")
                 psnr[route] = slab_check(img, refs[0], f"sharded {route}")
+                # phase 11's sharded case: the packed scene's shard
+                pimg, pov = counted(
+                    f"render_sharded_tiled_{route}_packed",
+                    lambda route=route: sharding.render_sharded_tiled(
+                        plocal, cam, mesh, cfg, route=route))
+                require(int(pov) == 0 and torch.equal(pimg, img),
+                        f"sharded {route}: the packed shard's image differs "
+                        f"from the unpacked shard's")
+                res["packed_equal"][route] = True
             imgs, ov = counted(
                 "render_batch_sharded_tiled",
                 lambda: sharding.render_batch_sharded_tiled(local, views,
@@ -999,7 +1030,7 @@ def parallel_path(device, kernels) -> dict:
             torch.cuda.synchronize()
             res["ms_per_frame"]["sharded_batch_host_clock"] = (
                 (time.perf_counter() - t0) * 1e3 / PARALLEL_FRAMES)
-            del scene, local, proj, refs, imgs
+            del scene, local, plocal, proj, refs, imgs
 
             # training: phase 6's 1M surface views, single-device, then on
             # the mesh (data parallel over 'd', tensor parallel over 'g':
@@ -1317,6 +1348,163 @@ def knob_path(device, kernels) -> tuple[dict, dict, dict]:
     return k1, k2, figures
 
 
+def profile_calls(fn, reps: int, top: int = 6) -> dict:
+    """``fn`` called ``reps`` times under ``torch.profiler`` after one
+    warm-up call: per call, the device-busy ms, the CUDA kernels launched
+    and the ``top`` kernels by device time (names cut to 80 characters)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per: dict[str, float] = {}
+    launches = 0
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            key = evt.key[:80]
+            per[key] = per.get(key, 0.0) + evt.self_device_time_total
+            launches += evt.count
+    ranked = sorted(per.items(), key=lambda kv: -kv[1])[:top]
+    return {"busy_ms": sum(per.values()) / 1e3 / reps,
+            "kernels": launches / reps,
+            "top_ms": {k: v / 1e3 / reps for k, v in ranked}}
+
+
+def packed_path(device, kernels, sharded_equal: dict) -> dict:
+    """Phase 11: the feature-major scene at the 1M random and surface
+    frames @1920x1080.  ``sharded_equal`` is phase 9's comparison of the
+    packed shard's sharded renders.  Returns the phase's figures and the
+    K1/K2 launches of its ``stt.render`` frames."""
+    import torch
+    import splat_tpu_torch as stt
+    from splat_tpu_torch.ops.projection import project_gaussians
+    from splat_tpu_torch.scene import PACKED_ROWS, DeviceScene
+    from splat_tpu_torch.utils.benchmark import chained_bench
+
+    expand, raster = kernels[:2]
+    cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
+    figures: dict = {"sharded_world_1_equal": sharded_equal}
+    launches = {"K1": 0, "K2": 0}
+    for kind in ("random", "surface"):
+        scene, dup = bench_scene(kind, N_BIG, device)
+        cfg = stt.RenderConfig(max_dup_factor=dup)
+        fig: dict = {}
+
+        # ---- the pack: its time, its memo, its fields
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        packed = scene.pack_device()
+        torch.cuda.synchronize()
+        fig["pack_first_host_ms"] = (time.perf_counter() - t0) * 1e3
+        require(scene.pack_device() is packed, f"{kind}: pack not memoized")
+        want = torch.cat([scene.means, scene.quats, scene.scales,
+                          scene.opacities[:, None],
+                          scene.sh.reshape(N_BIG, 48)], dim=1).T
+        require(packed.buffer.shape == (PACKED_ROWS, N_BIG)
+                and packed.buffer.is_contiguous()
+                and torch.equal(packed.buffer, want),
+                f"{kind}: the packed fields differ from the scene's")
+        del want
+        # an explicit device is a fresh pack each call: five copies
+        fig["pack_ms"] = cuda_ms(lambda: scene.pack_device(device), PACK_REPS)
+        # each value read once and written once
+        fig["pack_bound_ms"], _ = bound(2 * 4 * PACKED_ROWS * N_BIG, 0)
+
+        # ---- the projection on both layouts
+        layouts = {"unpacked": scene, "packed": packed}
+        fig["projection_ms"] = {
+            name: cuda_ms(lambda sc=sc: project_gaussians(sc, cam, cfg),
+                          PROJ_REPS) for name, sc in layouts.items()}
+        prof = {name: profile_calls(
+            lambda sc=sc: project_gaussians(sc, cam, cfg), PROFILE_REPS)
+            for name, sc in layouts.items()}
+        fig["projection_busy_ms"] = {k: v["busy_ms"] for k, v in prof.items()}
+        fig["projection_kernels"] = {k: v["kernels"] for k, v in prof.items()}
+        fig["projection_top_ms"] = {k: v["top_ms"] for k, v in prof.items()}
+        a = project_gaussians(scene, cam, cfg)
+        b = project_gaussians(packed, cam, cfg)
+        require(all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+                    for f in dataclasses.fields(a)),
+                f"{kind}: projected fields differ across layouts")
+        del a, b
+
+        # ---- the images on both layouts, bit for bit
+        img_u, st_u = stt.render_tiled(scene, cam, cfg, return_stats=True)
+        img_p, st_p = stt.render_tiled(packed, cam, cfg, return_stats=True)
+        require(int(st_u["overflow"]) == 0 and int(st_p["overflow"]) == 0,
+                f"{kind}: overflow")
+        require(torch.equal(img_u, img_p),
+                f"{kind}: render_tiled differs across layouts (max abs "
+                f"{float((img_u - img_p).abs().max())})")
+        fig["images_equal"] = True
+
+        # ---- stt.render of a GaussianScene: one pack over 3 frames, K1
+        # and K2 once a frame, counted from 0
+        fresh = dataclasses.replace(scene)           # no memoized pack
+        views = [cam.rotate(0.01 * i) for i in range(3)]
+        packs = []
+        real = DeviceScene.__dict__["from_buffer"]
+
+        def counted(cls, buf, real=real):
+            packs.append(tuple(buf.shape))
+            return real.__func__(cls, buf)
+
+        DeviceScene.from_buffer = classmethod(counted)
+        try:
+            for fn in kernels:
+                fn.launches = 0
+            imgs = [stt.render(fresh, v, cfg) for v in views]
+            torch.cuda.synchronize()
+            got = {"K1": expand.launches, "K2": raster.launches}
+        finally:
+            DeviceScene.from_buffer = real
+        require(len(packs) == 1, f"{kind}: render() packed {len(packs)} "
+                                 f"times over 3 frames")
+        require(got == {"K1": 3, "K2": 3},
+                f"{kind}: render() of 3 frames launched {got}")
+        for k in launches:
+            launches[k] += got[k]
+        require(torch.equal(imgs[0], img_p), f"{kind}: render() differs "
+                                             f"from render_tiled of the pack")
+        for v, img in zip(views[1:], imgs[1:]):
+            require(torch.equal(img, stt.render_tiled(fresh.pack_device(), v,
+                                                      cfg)),
+                    f"{kind}: render() differs from render_tiled")
+        fig.update(render_packs=len(packs), render_launches=got)
+        del fresh, imgs, img_u, img_p
+
+        # ---- yaw sweeps in turns
+        sweeps: dict = {"unpacked": [], "packed": []}
+        for name in ("unpacked", "packed", "packed", "unpacked"):
+            r = chained_bench(layouts[name], cam, cfg, SWEEP_FRAMES)
+            require(r["overflow"] == 0, f"{kind} {name} sweep: overflow")
+            sweeps[name].append(r["ms_per_frame"])
+        fig["sweep_ms_per_frame"] = sweeps
+        figures[kind] = fig
+        print(f"[packed] {kind} {N_BIG} @{W}x{H}: pack {fig['pack_ms']:.4f} "
+              f"ms (bound {fig['pack_bound_ms']:.4f}; first "
+              f"{fig['pack_first_host_ms']:.2f} ms host); projection "
+              f"unpacked / packed: {fig['projection_ms']['unpacked']:.4f} / "
+              f"{fig['projection_ms']['packed']:.4f} ms (events, "
+              f"{PROJ_REPS} calls), device busy "
+              f"{fig['projection_busy_ms']['unpacked']:.4f} / "
+              f"{fig['projection_busy_ms']['packed']:.4f} ms, "
+              f"{fig['projection_kernels']['unpacked']:.0f} / "
+              f"{fig['projection_kernels']['packed']:.0f} kernels a call; "
+              f"images equal; render() packed once in 3 frames, launches "
+              f"{got}; ms/frame unpacked {sweeps['unpacked']}, packed "
+              f"{sweeps['packed']}")
+        del scene, packed, layouts
+    print(json.dumps({"packed": figures}))
+    return {"figures": figures, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1359,7 +1547,7 @@ def main() -> int:
     for kind, k2_plain_reps in (("random", 2), ("surface", 0)):
         scene, dup = bench_scene(kind, N_BIG, device)
         cfg = stt.RenderConfig(max_dup_factor=dup)
-        proj = project_gaussians(scene, cam, cfg)
+        proj = project_gaussians(scene.pack_device(), cam, cfg)
         print(f"[K1-K4] {kind} {N_BIG} @{W}x{H}:")
         k1, bins = check_expand(proj, H, W, cfg)
         k2 = check_raster(bins, H, W, cfg, k2_plain_reps)
@@ -1403,6 +1591,9 @@ def main() -> int:
         k["parallel_launches"] = sum(n.get(key, 0)
                                      for n in par["launches"].values())
     k1c, k2s, _ = knob_path(device, kernels)
+    packed = packed_path(device, kernels, par["packed_equal"])
+    k1["packed_launches"] = packed["launches"]["K1"]
+    k2["packed_launches"] = packed["launches"]["K2"]
     print(json.dumps({"kernels": [k1, k2, k3, k4, k1c, k2s]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

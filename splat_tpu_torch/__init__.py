@@ -6,8 +6,11 @@ binning and the optimiser are PyTorch tensor code, and the four TPU
 kernels are CUDA C++ kernels written for ``sm_90a`` (``csrc/expand.cu``:
 pair expansion, ``csrc/raster.cu``: per-tile compositing,
 ``csrc/raster_train.cu``: the training forward and backward), built with
-``nvcc`` on first use.  Constructors put tensors on ``cuda:0`` unless
-given ``device=``.  CPU tensors take each kernel's plain PyTorch version,
+``nvcc`` on first use.  The inference frame reads the feature-major
+``DeviceScene`` (``scene.pack_device()``; ``render()`` packs a
+``GaussianScene`` once and keeps the pack), training the
+``GaussianScene``.  Constructors put tensors on ``cuda:0`` unless given
+``device=``.  CPU tensors take each kernel's plain PyTorch version,
 which the tests hold against the JAX package.  This package never
 imports JAX.
 
@@ -18,6 +21,8 @@ Public API::
     scene  = stt.load_ply("point_cloud.ply")         # on cuda:0
     camera = stt.Camera.create(h=1080, w=1920, position=(0., 0., 5.))
     img    = stt.render(scene, camera)              # float32 (H, W, 3)
+    packed = scene.pack_device()                    # stt.DeviceScene
+    img    = stt.render_tiled(packed, camera)       # a frame loop's input
     res    = stt.fit(scene, stt.orbit_trajectory(camera, 4, 0.8), targets,
                      method="tiled")                # targets (4, H, W, 3)
 
@@ -26,7 +31,7 @@ The command line is ``python -m splat_tpu_torch
 """
 
 from splat_tpu_torch.config import RenderConfig
-from splat_tpu_torch.scene import GaussianScene
+from splat_tpu_torch.scene import DeviceScene, GaussianScene
 from splat_tpu_torch.camera import (Camera, SE3Camera, orbit_trajectory,
                                     stack_cameras)
 from splat_tpu_torch.io.cache import load_scene_cached
@@ -47,6 +52,7 @@ __version__ = "0.1.0"
 __all__ = [
     "RenderConfig",
     "GaussianScene",
+    "DeviceScene",
     "Camera",
     "SE3Camera",
     "orbit_trajectory",

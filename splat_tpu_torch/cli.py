@@ -287,6 +287,7 @@ def cmd_render(args) -> int:
     scene = _load(args, dev)
     cam = _camera(args, dev)
     config = _config(args, scene, cam)
+    scene = scene.pack_device()   # the feature-major layout, packed once
     t0 = time.time()
     if args.profile:
         from splat_tpu_torch.utils.diagnostics import profile_trace
@@ -333,6 +334,7 @@ def cmd_orbit(args) -> int:
     n_frames = len(cams)
     os.makedirs(args.out_dir, exist_ok=True)
     config = _config(args, scene, cam)
+    scene = scene.pack_device()   # the feature-major layout, packed once
     tiled = resolve_method(args.method, scene) == "tiled"
     f = render_fn(args.method, config)
     # each frame's overflow stays on the device; one read after the loop,
@@ -437,7 +439,7 @@ def cmd_bench(args) -> int:
         print(f"synthetic scene: N={args.n}")
     cam = _camera(args, dev)
     config = _config(args, scene, cam)
-    r = chained_bench(scene, cam, config, args.frames)
+    r = chained_bench(scene.pack_device(), cam, config, args.frames)
     print(f"compile: {r['warmup_s']:.1f}s")
     print(f"{args.frames} frames (device-chained, yaw sweep): "
           f"{r['ms_per_frame']:.2f} ms/frame ({r['fps']:.1f} FPS)")
@@ -470,7 +472,7 @@ def cmd_fit(args) -> int:
     from splat_tpu_torch.config import RenderConfig
     from splat_tpu_torch.io.cache import load_scene_cached
     from splat_tpu_torch.io.ply import save_ply
-    from splat_tpu_torch.render.api import render
+    from splat_tpu_torch.render.api import render, resolve_method
     from splat_tpu_torch.train import fit
     from splat_tpu_torch.utils.fixtures import random_scene
     from splat_tpu_torch.utils.image import psnr, read_png
@@ -485,6 +487,11 @@ def cmd_fit(args) -> int:
     if args.distill:
         # center=False: the fitted scene must live in REF's coordinates
         ref = load_scene_cached(args.distill, center=False, device=dev)
+        # pack once where the tiled path renders the targets (the dense
+        # path takes the GaussianScene as it is)
+        ref_render = (ref.pack_device()
+                      if resolve_method(args.method, ref) == "tiled"
+                      else ref)
         base = Camera.create(h=h, w=w, position=_parse_vec(args.pos, 3),
                              target=_parse_vec(args.target, 3),
                              fovy=math.radians(args.fovy_deg), device=dev)
@@ -494,7 +501,8 @@ def cmd_fit(args) -> int:
         print(f"rendering {args.views} target views from "
               f"{args.distill} at {w}x{h}...")
         with torch.no_grad():     # fit's loss saves them for backward
-            targets = torch.stack([render(ref, c, method=args.method)
+            targets = torch.stack([render(ref_render, c,
+                                          method=args.method)
                                    for c in cams])
     elif args.targets:
         if not args.cameras:

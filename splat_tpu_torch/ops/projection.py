@@ -16,6 +16,7 @@ import torch
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.ops.sh import eval_sh_cols
 from splat_tpu_torch.ops.transforms import compute_cov6_cols, pack_cov3d
+from splat_tpu_torch.scene import DeviceScene
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,21 +95,37 @@ def encode_depth_color(depth, visible, config: RenderConfig):
     return torch.clamp((depth - lo) / (hi - lo), 0.0, 1.0)
 
 
+def _scene_cols(scene):
+    """The (N,) component columns of a scene of either layout: means
+    (3), quaternion (4), scales (3), opacities, and the 48 SH columns
+    (``shs[3 * k + c]``).  A DeviceScene's fields pass through, each a
+    dense row; a GaussianScene's are strided column views of its
+    (N, 3)/(N, 4)/(N, 16, 3) tensors, the same values read with a stride
+    (``pack_device()`` once for a frame loop)."""
+    if isinstance(scene, DeviceScene):
+        return ((scene.mx, scene.my, scene.mz),
+                (scene.qw, scene.qx, scene.qy, scene.qz),
+                (scene.sx, scene.sy, scene.sz), scene.opacities,
+                tuple(scene.sh))
+    m, q, s, sh = scene.means, scene.quats, scene.scales, scene.sh
+    return ((m[:, 0], m[:, 1], m[:, 2]),
+            (q[:, 0], q[:, 1], q[:, 2], q[:, 3]),
+            (s[:, 0], s[:, 1], s[:, 2]), scene.opacities,
+            tuple(sh[:, k, c] for k in range(16) for c in range(3)))
+
+
 def project_gaussians(scene, camera, config: RenderConfig) -> ProjectedGaussians:
-    """All per-gaussian screen-space quantities for one frame."""
+    """All per-gaussian screen-space quantities for one frame, from a
+    ``GaussianScene`` or a ``DeviceScene`` (the same values either way)."""
     view = camera.view_matrix()
     fx, fy, cx0, cy0 = camera.intrinsics_px()
-    m, q, s, sh = scene.means, scene.quats, scene.scales, scene.sh
-    mx, my, mz = m[:, 0], m[:, 1], m[:, 2]
-    q4 = (q[:, 0], q[:, 1], q[:, 2], q[:, 3])
-    opacity = scene.opacities
+    (mx, my, mz), q4, s3, opacity, shs = _scene_cols(scene)
 
     if config.cov3d_transpose:
         # R(q*) = R(q)^T: the notebook's R^T diag(s^2) R ordering
         qw, qx, qy, qz = q4
         q4 = (qw, -qx, -qy, -qz)
-    xx, xy_, xz, yy, yz, zz = compute_cov6_cols(q4, (s[:, 0], s[:, 1],
-                                                     s[:, 2]))
+    xx, xy_, xz, yy, yz, zz = compute_cov6_cols(q4, s3)
 
     px = view[0, 0] * mx + view[0, 1] * my + view[0, 2] * mz + view[0, 3]
     py = view[1, 0] * mx + view[1, 1] * my + view[1, 2] * mz + view[1, 3]
@@ -157,7 +174,6 @@ def project_gaussians(scene, camera, config: RenderConfig) -> ProjectedGaussians
     rdz = mz - eye[2]
     rinv = 1.0 / torch.clamp(
         torch.sqrt(rdx * rdx + rdy * rdy + rdz * rdz), min=1e-12)
-    shs = tuple(sh[:, k, ch] for k in range(16) for ch in range(3))
     col_r, col_g, col_b = eval_sh_cols(shs, rdx * rinv, rdy * rinv,
                                        rdz * rinv, config.sh_degree)
 

@@ -20,7 +20,10 @@ the rows of ``P("g")``; :func:`shard_scene` cuts it), every rank is given
 the full list of cameras of a batch and takes its contiguous ``F/n_d``
 frames, and every rank returns what ``splat_tpu``'s replicated output
 holds: the full image, the full ``(F, H, W, C)`` batch, the summed
-overflow.
+overflow.  The renders take a shard of either layout, a ``GaussianScene``
+or a packed ``DeviceScene`` (``pack_device()``, sharded by
+:func:`shard_scene`), as ``splat_tpu``'s do; training takes the
+``GaussianScene``.
 
 The collectives run on the scene's device: NCCL on the card, gloo only for
 CPU tensors (:func:`make_mesh`); a tensor is never copied through the host
@@ -49,6 +52,7 @@ from splat_tpu_torch.render.dense import composite_rows, depth_order
 from splat_tpu_torch.render.diff import (_check_config, core_from_proj,
                                          finish_image)
 from splat_tpu_torch.render.kernels import rasterize_tiles
+from splat_tpu_torch.scene import DeviceScene
 
 MESH_DIMS = ("d", "g")
 # Rows of a packed projected record: center (2), conic (3), radius (2),
@@ -101,7 +105,9 @@ def _axis(mesh, name: str):
     return mesh.get_group(i), mesh.shape[i], mesh.get_local_rank(i)
 
 
-def _check_device(mesh, t: torch.Tensor) -> None:
+def _check_device(mesh, t) -> None:
+    """``t`` (a tensor or a scene of either layout) lies where the mesh's
+    ranks compute."""
     _axis(mesh, "g")
     if mesh.device_type != t.device.type:
         raise ValueError(
@@ -110,10 +116,12 @@ def _check_device(mesh, t: torch.Tensor) -> None:
 
 
 def shard_scene(scene, mesh):
-    """This rank's contiguous shard of a whole ``GaussianScene`` or
-    ``RawParams`` (any dataclass of (N, ...) tensors): rows
-    ``[g N/n_g, (g + 1) N/n_g)``, the shard ``P("g")`` gives in
-    ``splat_tpu``.  N must divide by the ``g`` axis (``pad_to`` pads)."""
+    """This rank's contiguous shard of a whole ``GaussianScene``,
+    ``RawParams`` (any dataclass of (N, ...) tensors) or ``DeviceScene``:
+    gaussians ``[g N/n_g, (g + 1) N/n_g)``, the shard ``P("g")`` gives in
+    ``splat_tpu``.  N must divide by the ``g`` axis (``pad_to`` pads).
+    A DeviceScene's shard is the columns of its buffer, the rows
+    re-viewed (still dense)."""
     _, n_g, g = _axis(mesh, "g")
     fields = [f.name for f in dataclasses.fields(scene)]
     n = getattr(scene, fields[0]).shape[0]
@@ -121,6 +129,8 @@ def shard_scene(scene, mesh):
         raise ValueError(f"{n} gaussians not divisible by the mesh 'g' "
                          f"axis {n_g}; pad_to a multiple first")
     m = n // n_g
+    if isinstance(scene, DeviceScene):
+        return DeviceScene.from_buffer(scene.buffer[:, g * m:(g + 1) * m])
     return dataclasses.replace(scene, **{
         k: getattr(scene, k)[g * m:(g + 1) * m] for k in fields})
 
@@ -241,7 +251,7 @@ def render_sharded(scene, camera, mesh, config: RenderConfig | None = None,
     dev = scene.device
     if scene.num_gaussians == 0:
         return _empty_frame(h, w, config, dev)[..., :3]
-    _check_device(mesh, scene.means)
+    _check_device(mesh, scene)
     group, n_g, g = _axis(mesh, "g")
     h_local = _slab_rows(h, n_g)
     proj = _gather_records(project_gaussians(scene, camera.to(dev), config),
@@ -342,7 +352,7 @@ def _slab_frame(scene, camera, config, route, cap_factor, group, n_g, g,
 
 def _prepare_tiled(scene, mesh, route, slab_cap_factor, h):
     """The route, cap factor, 'g' axis and slab rows of a tiled render."""
-    _check_device(mesh, scene.means)
+    _check_device(mesh, scene)
     group, n_g, g = _axis(mesh, "g")
     h_local = _slab_rows(h, n_g)
     route = _resolve_route(route, n_g)
@@ -473,7 +483,7 @@ def render_slab_tiled_diff(scene, camera, config: RenderConfig, mesh):
             "TP training with supersample > 1 is not supported")
     _check_sharded_config(config)
     _check_config(config)
-    _check_device(mesh, scene.means)
+    _check_device(mesh, scene)
     group, n_g, g = _axis(mesh, "g")
     h, w = camera.h, camera.w
     h_local = _slab_rows(h, n_g)
@@ -482,6 +492,14 @@ def render_slab_tiled_diff(scene, camera, config: RenderConfig, mesh):
                    g * h_local, h_local)
     c_raw, lt = core_from_proj(p, h_local, w, config)
     return _GatherSlabs.apply(finish_image(c_raw, lt, config), group)
+
+
+def _means(scene) -> torch.Tensor:
+    """(N, 3) centres of a scene of either layout (a DeviceScene's rows
+    stacked)."""
+    if isinstance(scene, DeviceScene):
+        return torch.stack([scene.mx, scene.my, scene.mz], dim=1)
+    return scene.means
 
 
 def _score_from_bounds(mins: np.ndarray, maxs: np.ndarray) -> float:
@@ -502,7 +520,7 @@ def shard_spatial_score(scene, n_g: int) -> float:
     crowd into few slabs.  Takes the whole scene; a tensor's means are
     copied to the host once (``splat_tpu`` skips device arrays because a
     fetch from its remote TPU is slow; a copy from the card is not)."""
-    means = scene.means.detach().cpu().numpy()
+    means = _means(scene).detach().cpu().numpy()
     if means.shape[0] < 2 * n_g:
         return 1.0
     shards = np.array_split(means, n_g)
@@ -515,7 +533,7 @@ def _sharded_score(scene, n_g: int, group) -> float:
     shards' boxes (6 floats each) all-gathered, then copied to the host."""
     if scene.num_gaussians * n_g < 2 * n_g:
         return 1.0
-    m = scene.means.detach()
+    m = _means(scene).detach()
     box = torch.stack([m.amin(dim=0), m.amax(dim=0)])          # (2, 3)
     boxes = _all_gather(box, group).cpu().numpy().reshape(n_g, 2, 3)
     return _score_from_bounds(boxes[:, 0], boxes[:, 1])

@@ -18,6 +18,7 @@ from splat_tpu_torch.render.binning import count_pairs
 from splat_tpu_torch.render.dense import render_dense
 from splat_tpu_torch.render.tiled import (CapacityOverflow, render_tiled,
                                          render_tiled_checked)
+from splat_tpu_torch.scene import GaussianScene
 
 
 def resolve_method(method: str, scene) -> str:
@@ -29,7 +30,8 @@ def resolve_method(method: str, scene) -> str:
 
 def render_fn(method: str = "auto", config: RenderConfig | None = None):
     """Return ``f(scene, camera) -> float32 (H, W, 3)`` ((H, W, 4) with
-    config.alpha_channel).  method: 'dense', 'tiled' or 'auto'."""
+    config.alpha_channel) for a ``GaussianScene`` or a ``DeviceScene``,
+    which ``f`` renders as given.  method: 'dense', 'tiled' or 'auto'."""
     config = config or RenderConfig()
 
     def f(scene, camera):
@@ -95,7 +97,9 @@ def _remember(key, scene, config) -> None:
 def render(scene, camera, config: RenderConfig | None = None,
            method: str = "auto", as_uint8: bool = False,
            check_overflow: bool = True):
-    """Render one frame.
+    """Render one frame of a ``GaussianScene`` or a ``DeviceScene``.  The
+    tiled path packs a ``GaussianScene`` (``pack_device()``, memoized on
+    the scene).
 
     With no config, the tiled path sizes its pair capacity from the
     measured load (cached per scene, resolution and config); a pose that
@@ -107,6 +111,11 @@ def render(scene, camera, config: RenderConfig | None = None,
     config = config or RenderConfig()
     m = resolve_method(method, scene)
     cache_key = None
+    if m == "tiled" and isinstance(scene, GaussianScene):
+        # the tiled frame reads the feature-major layout; the pack is
+        # memoized on the scene, so the capacity cache below, keyed by
+        # the packed object, hits from frame to frame
+        scene = scene.pack_device()
     if m == "tiled" and auto_capacity and scene.num_gaussians > 0:
         cache_key = (id(scene), scene.num_gaussians, camera.h, camera.w,
                      config)

@@ -22,8 +22,10 @@ class CapacityOverflow(RuntimeError):
 
 def render_tiled(scene, camera, config: RenderConfig | None = None, *,
                  return_stats: bool = False):
-    """Render to float32 (H, W, 3) — or (H, W, 4) RGBA with
-    config.alpha_channel — on the scene's device.
+    """Render a ``GaussianScene`` or a ``DeviceScene`` (the same image
+    bit for bit; a frame loop packs once, ``scene.pack_device()``) to
+    float32 (H, W, 3) — or (H, W, 4) RGBA with config.alpha_channel — on
+    the scene's device.
 
     return_stats: also return a dict of device scalars: num_pairs,
       overflow, visible, max_tile_pairs, mean_tile_pairs.  Nothing here

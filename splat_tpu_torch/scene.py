@@ -1,10 +1,21 @@
 """Gaussian scene data model (PyTorch port of ``splat_tpu.scene``).
 
-One structure-of-arrays batch of N gaussians as float32 tensors on one
-device.  All activations (exp scales, sigmoid opacity, normalized
-quaternions) are applied at load time, exactly as in ``splat_tpu``.  The
-TPU package's feature-major ``DeviceScene`` exists only for the TPU's
-memory layout and has no counterpart here.
+Two layouts of N gaussians as float32 tensors on one device, as in
+``splat_tpu``:
+
+* :class:`GaussianScene`, structure of arrays: (N, 3) means, (N, 4)
+  quaternions, (N, 3) scales, (N,) opacities, (N, 16, 3) SH.  Loaders,
+  training and the scene helpers work on it.
+* :class:`DeviceScene`, feature major: one dense (N,) row per component,
+  all rows views of one contiguous (59, N) buffer
+  (:meth:`GaussianScene.pack_device`).  The inference frame reads it.  A
+  column of an (N, 3)/(N, 4)/(N, 16, 3) tensor is a strided input, which
+  sends PyTorch's elementwise kernels down their non-vectorized path and
+  reads a 32-byte sector for each 4-byte value; a row of the buffer is
+  one dense stream (PERF.md: the projection's device time halves).
+
+All activations (exp scales, sigmoid opacity, normalized quaternions) are
+applied at load time, exactly as in ``splat_tpu``.
 """
 
 from __future__ import annotations
@@ -17,6 +28,9 @@ import torch
 from splat_tpu_torch.device import resolve_device
 
 _FIELDS = ("means", "quats", "scales", "opacities", "sh")
+# rows of a DeviceScene's buffer: mx, my, mz, qw, qx, qy, qz, sx, sy, sz,
+# opacities, then sh[3 * k + c] for coefficient k of channel c
+PACKED_ROWS = 11 + 48
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,3 +147,115 @@ class GaussianScene:
         perm = torch.from_numpy(np.random.default_rng(seed).permutation(
             self.num_gaussians)).to(self.device)
         return GaussianScene(**{k: getattr(self, k)[perm] for k in _FIELDS})
+
+    def pack_device(self, device=None) -> "DeviceScene":
+        """The feature-major :class:`DeviceScene` of this scene: one
+        (59, N) buffer filled by five copies, its rows the fields.
+
+        device: where the buffer lives (None: the scene's own device; the
+        port moves no tensor implicitly).  Packs run under ``no_grad``
+        and outside ``inference_mode``, so a pack made inside either is
+        an ordinary tensor that any later code may use.
+
+        The default-device pack is memoized on the scene, so the
+        auto-packing ``render()`` packs once per scene and its capacity
+        cache, keyed by the packed object, keeps hitting.  Tensors are
+        mutable where ``splat_tpu``'s arrays are not: the memo is keyed
+        on every leaf's storage address and version counter, so a leaf
+        edited in place (``scene.means.add_(...)``, or through a view)
+        gives a fresh pack.  Edits through ``.data``, which bypass the
+        version counter, are not seen.  Scenes of inference tensors,
+        which have no version counter, are packed afresh every call.
+        """
+        leaves = tuple(getattr(self, k) for k in _FIELDS)
+        memo = device is None and not any(t.is_inference() for t in leaves)
+        if memo:
+            key = tuple((t.data_ptr(), t._version) for t in leaves)
+            hit = self.__dict__.get("_packed_cache")
+            if hit is not None and hit[0] == key:
+                return hit[1]
+        n = self.num_gaussians
+        with torch.inference_mode(False), torch.no_grad():
+            buf = torch.empty((PACKED_ROWS, n), dtype=torch.float32,
+                              device=self.device if device is None
+                              else torch.device(device))
+            buf[0:3].copy_(self.means.T)
+            buf[3:7].copy_(self.quats.T)
+            buf[7:10].copy_(self.scales.T)
+            buf[10].copy_(self.opacities)
+            buf[11:].copy_(self.sh.reshape(n, 48).T)
+        out = DeviceScene.from_buffer(buf)
+        if memo:
+            object.__setattr__(self, "_packed_cache", (key, out))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceScene:
+    """Feature-major scene: one dense (N,) float32 row per component.
+
+    The fields are ``splat_tpu.DeviceScene``'s, in its order; ``sh`` is a
+    48-tuple in which ``sh[3 * k + c]`` is coefficient k of channel c
+    (the order of ``GaussianScene.sh``).  Made by
+    :meth:`GaussianScene.pack_device` or :meth:`from_buffer`, every field
+    is a row view of one (59, N) buffer (:attr:`buffer`).  Read by
+    ``ops.projection._scene_cols``: the inference frame, ``render()``, the
+    command line, the viewer and the sharded renders take it.  Training
+    takes a ``GaussianScene``.
+    """
+
+    mx: torch.Tensor
+    my: torch.Tensor
+    mz: torch.Tensor
+    qw: torch.Tensor
+    qx: torch.Tensor
+    qy: torch.Tensor
+    qz: torch.Tensor
+    sx: torch.Tensor
+    sy: torch.Tensor
+    sz: torch.Tensor
+    opacities: torch.Tensor
+    sh: tuple
+
+    @property
+    def num_gaussians(self) -> int:
+        return self.mx.shape[0]
+
+    def __len__(self) -> int:
+        return self.num_gaussians
+
+    @property
+    def device(self) -> torch.device:
+        return self.mx.device
+
+    @classmethod
+    def from_buffer(cls, buf: torch.Tensor) -> "DeviceScene":
+        """The scene whose fields are the rows of ``buf``, a
+        (PACKED_ROWS, N) tensor in the order of :data:`PACKED_ROWS`.  The
+        fields are views, and stay dense rows for a column slice
+        ``buf[:, a:b]`` too (a shard of the gaussians)."""
+        if buf.ndim != 2 or buf.shape[0] != PACKED_ROWS:
+            raise ValueError(f"a packed buffer is ({PACKED_ROWS}, N), got "
+                             f"{tuple(buf.shape)}")
+        rows = buf.unbind(0)
+        out = cls(*rows[:11], sh=tuple(rows[11:]))
+        object.__setattr__(out, "_buffer", buf)
+        return out
+
+    @property
+    def buffer(self) -> torch.Tensor:
+        """The (PACKED_ROWS, N) buffer the fields are rows of; for a scene
+        built field by field, a fresh stack of them."""
+        buf = self.__dict__.get("_buffer")
+        if buf is None:
+            buf = torch.stack((self.mx, self.my, self.mz, self.qw, self.qx,
+                               self.qy, self.qz, self.sx, self.sy, self.sz,
+                               self.opacities, *self.sh))
+        return buf
+
+    def permuted(self, seed: int = 0) -> "DeviceScene":
+        """The gaussians in ``GaussianScene.permuted(seed)``'s order (the
+        permutation of ``np.random.default_rng(seed)``), packed."""
+        perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+            self.num_gaussians)).to(self.device)
+        return DeviceScene.from_buffer(self.buffer[:, perm])

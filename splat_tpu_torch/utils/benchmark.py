@@ -24,6 +24,8 @@ from splat_tpu_torch.render.tiled import render_tiled
 
 def chained_bench(scene, camera, config, frames: int) -> dict:
     """Time ``frames`` renders at yaw + 0.01 * i; audit their pair load.
+    ``scene`` is what ``render_tiled`` takes: ``bench.py`` and the
+    command line give the packed ``DeviceScene`` (``pack_device()``).
 
     Returns ms_per_frame, fps, warmup_s (first frame, kernel build
     included), mean_pixel, and the sweep-max overflow / num_pairs /
@@ -96,7 +98,7 @@ def _device_profile(run, count: int, top: int) -> dict:
 def profile_frames(scene, camera, config, frames: int = 10,
                    top: int = 15) -> dict:
     """Where a frame's device time goes: the same yaw sweep under
-    ``torch.profiler``.  Returns per frame: the wall and device-busy ms,
+    ``torch.profiler``, on ``scene`` as given (``main`` packs it).  Returns per frame: the wall and device-busy ms,
     the device's idle share, and the ``top`` kernels by self device time.
     """
     if scene.device.type != "cuda":
@@ -170,7 +172,10 @@ def main(argv=None) -> int:
     cam = Camera.create(h=args.h, w=args.w, position=(0.0, 0.0, 4.0),
                         device=dev)
     if args.what == "frame":
-        # the sweep's wall time without the profiler, then its profile
+        # bench.py times packed scenes: the frame reads the feature-major
+        # layout.  The sweep's wall time without the profiler, then its
+        # profile
+        scene = scene.pack_device()
         sweeps = [chained_bench(scene, cam, cfg, args.frames)
                   for _ in range(3)]
         if any(s["overflow"] for s in sweeps):

@@ -127,7 +127,8 @@ def make_server(scene, camera, config=None, *, host: str = "127.0.0.1",
                 port: int = 8000, method: str = "auto", png_level: int = 0,
                 transport: str = "raw") -> ThreadingHTTPServer:
     """The viewer's HTTP server, bound to ``host:port`` (0 = any free
-    port) and not yet serving.
+    port) and not yet serving.  ``scene`` is a ``GaussianScene``, packed
+    here once, or a ``DeviceScene``.
 
     GET ``/`` is the page; GET ``/frame.raw`` (RGBA bytes) and
     ``/frame.png`` (PNG at ``png_level``) render the pose in the query
@@ -143,6 +144,7 @@ def make_server(scene, camera, config=None, *, host: str = "127.0.0.1",
     from splat_tpu_torch.config import RenderConfig
     from splat_tpu_torch.render.api import render_fn, resolve_method
     from splat_tpu_torch.render.tiled import render_tiled
+    from splat_tpu_torch.scene import GaussianScene
     from splat_tpu_torch.utils.image import encode_png
 
     config = config or RenderConfig()
@@ -157,6 +159,8 @@ def make_server(scene, camera, config=None, *, host: str = "127.0.0.1",
             cfg = dataclasses.replace(cfg, max_dup_factor=dup)
         return cfg
 
+    if isinstance(scene, GaussianScene):
+        scene = scene.pack_device()   # the feature-major layout, once
     lock = threading.Lock()
     camera = camera.to(scene.device)
     base_pos = camera.position.cpu().numpy()

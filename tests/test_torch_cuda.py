@@ -354,6 +354,52 @@ def test_render_on_card_matches_dense_and_cpu(dev):
     assert stt.psnr(img, cpu) >= 60.0
 
 
+@pytest.mark.parametrize("cfg_kw", [{}, dict(render_mode="depth"),
+                                    dict(tile_px=32, tile_py=16)],
+                         ids=["default", "depth", "tiles_32x16"])
+def test_packed_render_on_card_equals_unpacked(dev, cfg_kw):
+    """render_tiled of the packed 20k scene equals the unpacked one bit
+    for bit on the card: the same kernels on the same values; K1 and K2
+    launch once each."""
+    scene = stt.random_scene(20000, seed=1, extent=2.0,
+                             scale_range=(0.005, 0.05), device=dev)
+    cam = stt.Camera.create(h=200, w=300, position=(0.0, 0.0, 4.0), yaw=0.4,
+                            device=dev)
+    cfg = stt.RenderConfig(**cfg_kw)
+    packed = scene.pack_device()
+    assert packed.device == dev and packed.buffer.is_contiguous()
+    want = stt.render_tiled(scene, cam, cfg)
+    k1, k2 = expand_pair_keys.launches, rasterize_tiles.launches
+    got = stt.render_tiled(packed, cam, cfg)
+    assert expand_pair_keys.launches == k1 + 1
+    assert rasterize_tiles.launches == k2 + 1
+    assert got.mean() > 0.01 and torch.equal(got, want)
+
+
+def test_pack_memo_on_card(dev):
+    """The memo on the card: one pack per scene, a fresh one after an
+    edit in place, and none made inside inference_mode is an inference
+    tensor; render() reuses the memoized pack."""
+    scene = stt.random_scene(5000, seed=3, device=dev)
+    p1 = scene.pack_device()
+    assert scene.pack_device() is p1
+    assert p1.mx.device.type == "cuda"
+    assert torch.equal(p1.sh[3 * 5 + 2], scene.sh[:, 5, 2])
+    with torch.no_grad():
+        scene.quats.mul_(1.0)
+    p2 = scene.pack_device()
+    assert p2 is not p1
+    fresh = stt.random_scene(5000, seed=4, device=dev)
+    cam = stt.Camera.create(h=96, w=128, position=(0.0, 0.0, 4.0),
+                            device=dev)
+    with torch.inference_mode():
+        img = stt.render(fresh, cam, method="tiled")
+    packed = fresh.pack_device()
+    assert not packed.buffer.is_inference()
+    assert torch.equal(stt.render(fresh, cam, method="tiled"), img)
+    assert fresh.pack_device() is packed
+
+
 def test_slab_split_render_on_card_matches_render_tiled(dev):
     """K1 and K2 on the row slabs of a 4-way split (the tiled sharded
     render's slabs, 120 / 4 = 30 rows: the last tile row of each slab is

@@ -327,6 +327,16 @@ def test_sharded_render_with_cull_and_subtile_exit(world):
     _close_to_port(ref["tiled_knobs"], ref["tiled"][0])
 
 
+def test_sharded_render_of_packed_scene(world):
+    """render_sharded_tiled at g = 2 on each rank's shard of the packed
+    scene (the buffer's columns, shard_scene's DeviceScene path) equals
+    the render of the unpacked shard, bit for bit, by both routes."""
+    for out in world[2]:
+        for route in ("gather", "a2a"):
+            np.testing.assert_array_equal(out[f"2x2_packed_{route}"],
+                                          out[f"2x2_{route}"])
+
+
 @pytest.mark.parametrize("mesh", MESHES)
 def test_a2a_equals_gather(world, mesh):
     """Both routes gate with _slab_view's gate, so they keep the same

@@ -82,7 +82,7 @@ def test_render_auto_capacity_cache_and_retry():
     ref = stt.render_dense(scene, cam)
     assert stt.psnr(img, ref) >= 45.0
     (key, (ref_w, cfg)), = api._AUTO_CONFIG_CACHE.items()
-    assert ref_w() is scene
+    assert ref_w() is scene.pack_device()     # keyed by the memoized pack
     stats = stt.pair_stats(scene, cam)
     assert stats["slots"] == stats["num_pairs"] > 0
     assert cfg.max_dup_factor >= stats["slots"] / 5000

@@ -97,6 +97,11 @@ def renders(inp, out: dict, rank: int) -> None:
             sharding.render_sharded(empty, cam, mesh, bg_cfg),
             sharding.render_batch_sharded(empty, views, mesh, bg_cfg)[2]])
         if shape == (2, 2):
+            # the shard of the packed scene, by both routes
+            packed = sharding.shard_scene(scene.pack_device(), mesh)
+            for route in ("gather", "a2a"):
+                out[f"{t}_packed_{route}"] = sharding.render_sharded_tiled(
+                    packed, cam, mesh, cfg, route=route)[0]
             # g = 2 with both of K1's and K2's walk knobs on
             out[f"{t}_knobs"] = sharding.render_sharded_tiled(
                 local, cam, mesh, stt.RenderConfig(
