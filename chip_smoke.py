@@ -1,8 +1,9 @@
-"""Smoke run of the PyTorch + CUDA port (``splat_tpu_torch``) on one GPU.
+"""Smoke run of the PyTorch + CUDA port (``splat_tpu_torch``) on the GPUs.
 
-Run from the root of a checkout on a machine with an NVIDIA Hopper card:
+Run from the root of a checkout on a machine with NVIDIA Hopper cards
+(phase 9 takes every visible card, one rank a card; the rest card 0):
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only-parallel]
 
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
@@ -51,27 +52,40 @@ Phases (any failure raises and exits non-zero):
      and K2 must launch on the inference commands, K3 and K4 on ``fit``.
      Prints a JSON line of the phase's times.
   9. the multi-device paths (``splat_tpu_torch.parallel``, ``fit(mesh=)``)
-     on a world of one NCCL rank (file store under ``build/``), at the 1M
-     surface scene @1920x1080 of phases 4 and 6, every launch counter at 0
-     first: ``render_sharded_tiled`` by both routes (a2a forced at g = 1)
-     and ``render_batch_sharded_tiled`` over 8 yaw frames, each frame
+     on a world of one NCCL rank a visible card: this script started again
+     once a rank (``--rank r --world N``, through
+     ``parallel.dryrun.start_ranks``/``join_ranks``: a failing rank fails
+     the phase at once, with its standard error), rank r on card r, each
+     writing its results under ``build/``; this process holds them to the
+     limits (``check_parallel``).  On every card: K1-K4 against their
+     plain versions on the fitted 20k scene @400x300, to phase 2-3b's
+     limits.  At 1920x1080, each path's launches counted from 0 on every
+     rank (K1 and K2 must launch on each render path): the 1M random and
+     the 1M surface frame by ``render_sharded_tiled`` on mesh (1, N), both
+     routes, and ``random_scene(N x 1M)`` (1M a card) alike, each image
      within the slab limits of tests/test_sharding.py (>= SLAB_MIN_PSNR,
-     under SLAB_MAX_DIFF_SHARE of pixels off by more than 1e-6) of
-     ``render_tiled``, overflow 0; the row slabs of a 2-, 4- and 8-way
-     split (540, 270 and 135 rows) rendered by ``render_slab_tiled`` in
-     this process and stitched, same limits; K1 and K2 must have launched
-     on each of these paths, its counts set to 0 just before it.  Then
-     ``fit(mesh=make_mesh(1, 1))`` (data parallel over 'd', tensor
-     parallel over 'g'), BIG_FIT_STEPS tiled steps on phase 6's 2 views,
-     its loss history within FIT_LOSS_RTOL of the nearer of two
-     single-device ``fit`` runs (which differ run to run by atomic adds);
-     counted from 0 over its own timed run, K3 and K4 must have launched
-     once a view and step.  Last,
-     ``python -m splat_tpu_torch.parallel.dryrun --world 1`` must exit 0.
-     Prints a ``{"parallel": ...}`` JSON line: ms per frame of each route
-     and of ``render_tiled`` on the same frames, ms per step of each fit,
-     the stitched slabs' PSNR and the launch counts (what the collective
-     layer costs at world size 1; no multi-GPU time).
+     under SLAB_MAX_DIFF_SHARE of pixels off by more than 1e-6) of one
+     card's ``render_tiled`` of the whole scene on rank 0, the same on
+     every rank, a2a within A2A_GATHER_TOL of gather, overflow 0, the
+     packed shard's image equal to the unpacked one's; the 8 yaw frames of
+     the surface scene by ``render_batch_sharded_tiled`` on (N, 1) (and
+     (2, 2) on four cards), each frame within the same limits; on rank 0
+     the 2-, 4- and 8-way slab split by ``render_slab_tiled``, stitched,
+     same limits.  Then phase 6's 1M surface recipe, BIG_FIT_STEPS tiled
+     steps by ``fit(mesh=)``: 2 views on (1, N) (tensor parallel over
+     'g') and N views on (N, 1) (data parallel over 'd'), each loss
+     history within max(FIT_LOSS_RTOL, FIT_GAP_FACTOR x the single-card
+     run-to-run gap) of the nearer of two single-card fits on rank 0, the
+     whole fitted parameters finite and moved, K3 and K4 launched once a
+     local view and step.  Last, ``python -m
+     splat_tpu_torch.parallel.dryrun --world N`` must exit 0.  Prints the
+     link between the cards (``nvidia-smi topo -m``) and a
+     ``{"parallel": ...}`` JSON line: ms per frame and per step (CUDA
+     events between syncs of every rank, the slowest rank's) beside one
+     card's on the same frames and steps, the bytes a rank receives a
+     frame by each collective, the losses and the launch counts.
+     ``--only-parallel`` runs phases 1 and 9 alone (a machine of several
+     cards).
   10. the two knobs at the 1M random and surface frames @1920x1080:
      ``cull_pairs``: K1's cull equal to its plain version (keys and owners),
      pairs culled, num_pairs the pairs kept, overflow 0, the image within
@@ -95,8 +109,8 @@ Phases (any failure raises and exits non-zero):
      over 3 frames and equal to ``render_tiled`` of the pack, with K1 and
      K2 launched once a frame, counted from 0; yaw sweeps of both layouts
      in turns (unpacked, packed, packed, unpacked).  Phase 9 adds
-     ``render_sharded_tiled`` at world size 1 of the packed scene's
-     shard, by both routes, equal bit for bit to the unpacked shard's.
+     ``render_sharded_tiled`` of the packed scene's shard, by both
+     routes, equal bit for bit to the unpacked shard's.
      Prints a ``{"packed": ...}`` JSON line.
 The second-to-last line is a JSON object describing each kernel, with its
 bound (the least time the card could take for its work on these inputs:
@@ -115,6 +129,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -138,17 +153,30 @@ FIT_STEPS = 30
 BIG_FIT_STEPS = 3
 ORBIT_FRAMES = 10          # phase 8: the CLI orbit of the 1M surface PLY
 VIEWER_REQUESTS = 10       # phase 8: timed raw requests at 1080p
-# phase 9: a slab-split render against one render_tiled, as
-# tests/test_sharding.py holds splat_tpu's (the slabs' tile grids differ,
-# so K2's whole-tile exit falls elsewhere)
+# phase 9: a slab-split render against one render_tiled, the limits
+# tests/test_sharding.py holds splat_tpu's to (its slabs cut the image's
+# tiles elsewhere, so K2's whole-tile exit falls elsewhere; the port bins a
+# slab on the image's own tiles and windows)
 SLAB_MIN_PSNR = 55.0
 SLAB_MAX_DIFF_SHARE = 0.002
 PARALLEL_FRAMES = 8
-# phase 9: fit(mesh=) at world size 1 against the nearer of two single-
-# device fits (K4's atomics add in a run-dependent order; on the H100 two
-# single-device runs of the same 3 steps differed by 9.66e-6 relative,
-# and the mesh's history equalled one of them exactly: PERF.md, section 5)
+# phase 9: a sharded fit against the nearer of two single-card fits (K4's
+# atomics add in a run-dependent order; on the H100 two single-card runs
+# of the same 3 steps differed by 9.66e-6 relative, and at world size 1
+# the mesh's history equalled one of them exactly: PERF.md, section 5).
+# Across cards the tolerance is FIT_GAP_FACTOR times the run-to-run gap
+# measured in the same phase, never below FIT_LOSS_RTOL (check_parallel).
 FIT_LOSS_RTOL = 1e-5
+FIT_GAP_FACTOR = 10.0
+# phase 9: the a2a route's image against the gather route's
+A2A_GATHER_TOL = 1e-5
+# phase 9: the world's sizes (parallel_rank), and its time limit in seconds
+PARALLEL_SIZES = {"n": N_BIG, "dup": None, "h": H, "w": W,
+                  "frames": PARALLEL_FRAMES,
+                  "steps": BIG_FIT_STEPS, "fit_dup": 1.45,
+                  "slab_ways": [2, 4, 8],
+                  "check_ply": FITTED_PLY, "check_h": 300, "check_w": 400}
+PARALLEL_TIMEOUT = 300.0
 # phase 10: the subtile_exit image against the whole-tile one, at the
 # tolerance tests/test_tiled.py holds splat_tpu's to (a group stops only
 # once its pixels have T < alpha_min / 4096, so it leaves out less)
@@ -900,211 +928,548 @@ def cli_and_viewer(device, kernels) -> dict:
     return {"inference": inference, "fit": training}
 
 
-def slab_check(got, want, what: str) -> float:
-    """The slab limits of phase 9; returns the PSNR."""
+def card_links(world: int) -> str:
+    """The link between card 0 and each other card, from ``nvidia-smi
+    topo -m`` (its matrix printed too); where that fails, card 0's NVLink
+    links (``nvidia-smi nvlink --status``) and peer access."""
+    import re
     import torch
-    import splat_tpu_torch as stt
-    p = float(stt.psnr(got, want))
-    share = float(((got - want).abs() > 1e-6).float().mean())
-    require(p >= SLAB_MIN_PSNR and share < SLAB_MAX_DIFF_SHARE,
-            f"{what}: {p:.2f} dB, {share:.5f} of pixels off > 1e-6")
-    require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
-    return p
+    if world < 2:
+        return "one card"
+
+    def smi(*args) -> str:
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True)
+        return re.sub(r"\x1b\[[0-9;]*m", "", out.stdout + out.stderr)
+
+    topo = smi("topo", "-m")
+    for line in topo.splitlines():
+        print(f"[topo] {line}")
+    rows = [line.split() for line in topo.splitlines()
+            if line.startswith("GPU0")]
+    if rows and len(rows[0]) > world:
+        return ", ".join(f"GPU0-GPU{k} {rows[0][1 + k]}"
+                         for k in range(1, world))
+    links = [line.strip() for line in smi("nvlink", "--status",
+                                          "-i", "0").splitlines()
+             if "GB/s" in line]
+    for line in links:
+        print(f"[nvlink] GPU0 {line}")
+    peer = all(torch.cuda.can_device_access_peer(0, k)
+               for k in range(1, world))
+    return (f"GPU0: {len(links)} NVLink links up"
+            f"{' (' + links[0] + ')' if links else ''}; peer access to "
+            f"GPU1-{world - 1}: {peer} (topo -m failed)")
 
 
-def parallel_path(device, kernels) -> dict:
-    """Phase 9: the sharded renders, the slab split and fit(mesh=) on a
-    world of one NCCL rank.  Returns the launch counts."""
-    import tempfile
+def kernel_errors(proj, h: int, w: int, cfg) -> dict:
+    """K1-K4 against their plain versions on one frame, on the device of
+    ``proj``: K1's keys and owners equal, K2's and K3's max abs errors,
+    K3's cut equal, K4's worst per-field error relative to the field's
+    largest value and its cosine."""
+    import torch
+    from splat_tpu_torch.render import binning, diff
+    from splat_tpu_torch.render.expand import expand_pair_keys_plain
+    from splat_tpu_torch.render.kernels import (rasterize_tiles,
+                                                rasterize_tiles_plain)
+
+    lay = binning.slot_layout(proj, h, w, cfg)
+    keys, owners = lay.expand()
+    keys_p, owners_p = lay.expand(expand_pair_keys_plain)
+    bins = binning.build_tile_bins(proj, h, w, cfg)
+    img = rasterize_tiles(bins, h, w, cfg)
+    img_p = rasterize_tiles_plain(bins, h, w, cfg)
+    c, lt, cut = diff.rasterize_train_fwd(bins, h, w, cfg)
+    c_p, lt_p, cut_p = diff.rasterize_train_fwd_plain(bins, h, w, cfg)
+    gen = torch.Generator(device=c.device).manual_seed(0)
+    g_c = torch.randn((h, w, 3), generator=gen, device=c.device)
+    g_lt = torch.randn((h, w), generator=gen, device=c.device)
+    g = diff.rasterize_train_bwd(bins, g_c, g_lt, lt, cut, h, w, cfg)
+    g_p = diff.rasterize_train_bwd_plain(bins, g_c, g_lt, lt, cut, h, w, cfg)
+    a, b = g.double().flatten(), g_p.double().flatten()
+    return {
+        "pairs": int(bins.num_pairs), "overflow": int(bins.overflow),
+        "K1_equal": bool(torch.equal(keys, keys_p)
+                         and torch.equal(owners, owners_p)),
+        "K2_err": float((img - img_p).abs().max()),
+        "K3_err": max(float((c - c_p).abs().max()),
+                      float((lt - lt_p).abs().max())),
+        "K3_cut_equal": bool(torch.equal(cut, cut_p)),
+        "K4_rel": max(float((g[:, q] - g_p[:, q]).abs().max())
+                      / (float(g_p[:, q].abs().max()) + 1e-30)
+                      for q in range(g.shape[1])),
+        "K4_cos": float(a @ b / (a.norm() * b.norm())),
+        "finite": bool(torch.isfinite(img).all() & torch.isfinite(c).all()
+                       & torch.isfinite(g).all())}
+
+
+def parallel_rank(rank: int, world: int, dev, sizes: dict) -> dict:
+    """Phase 9 on one rank of a world of ``world`` ranks, one a card
+    (every rank runs this, making the same collective calls in the same
+    order).  ``sizes`` (``PARALLEL_SIZES`` on the card): the scene size
+    ``n`` a card (the frames' capacity ``dup``, None: ``bench_scene``'s),
+    the frame ``h`` x ``w``, ``frames`` yaw views, fit
+    ``steps`` at ``fit_dup`` (phase 6's recipe), the ``slab_ways`` of the in-process split, the kernel
+    check's scene (``check_ply``, else ``surface_scene(check_n)``) and
+    frame ``check_h`` x ``check_w``; ``fail_rank`` makes that rank raise
+    once the world is up (the launcher's failure test).
+
+    Measures and returns; :func:`check_parallel` in the launching
+    process holds the results of every rank to the phase's limits.  Rank
+    0 also computes the single-card references (``render_tiled`` of the
+    whole scene, two single-card ``fit`` runs) while the others wait in
+    their next collective.  Launches are counted from 0 before each path
+    and read after it."""
     import numpy as np
     import torch
     import torch.distributed as dist
     import splat_tpu_torch as stt
     from splat_tpu_torch.ops.projection import project_gaussians
     from splat_tpu_torch.parallel import sharding
+    from splat_tpu_torch.render.diff import (rasterize_train_bwd,
+                                             rasterize_train_fwd)
+    from splat_tpu_torch.render.expand import expand_pair_keys
+    from splat_tpu_torch.render.kernels import rasterize_tiles
 
-    expand, raster, fwd, bwd = kernels
+    kernels = {"K1": expand_pair_keys, "K2": rasterize_tiles,
+               "K3": rasterize_train_fwd, "K4": rasterize_train_bwd}
+    n, h, w, frames, steps = (sizes[k] for k in ("n", "h", "w", "frames",
+                                                 "steps"))
+    on_card = dev.type == "cuda"
+    lead = rank == 0
+    out: dict = {"rank": rank, "device": str(dev), "launches": {},
+                 "frames": {}, "batch": {}, "slab_split": {}, "fits": {}}
 
-    def zero_counts():
-        for fn in kernels:
-            fn.launches = 0
+    def local_sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
 
-    def frames_ms(render, views) -> float:
-        render(views[0])                              # warm-up
-        torch.cuda.synchronize()
-        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        t0.record()
-        for v in views:
-            render(v)
-        t1.record()
-        torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / len(views)
+    def sync():
+        dist.all_reduce(torch.zeros(1, device=dev))
+        local_sync()
 
-    build = os.path.join(ROOT, "build")
-    os.makedirs(build, exist_ok=True)
-    res: dict = {"card": subprocess.run(
+    def clock(fn, reps: int, warmup: bool = True) -> float:
+        """ms per call of ``fn(i)``, i < reps (after a warm-up call): CUDA
+        events on the card, the host clock on the CPU."""
+        if warmup:
+            fn(0)
+        local_sync()
+        if on_card:
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            for i in range(reps):
+                fn(i)
+            t1.record()
+            local_sync()
+            return t0.elapsed_time(t1) / reps
+        t = time.perf_counter()
+        for i in range(reps):
+            fn(i)
+        return (time.perf_counter() - t) * 1e3 / reps
+
+    def slowest(fn, reps: int, warmup: bool = True) -> float:
+        """``clock`` between syncs of every rank; the slowest rank's."""
+        sync()
+        t = torch.tensor([clock(fn, reps, warmup)], dtype=torch.float64,
+                         device=dev)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t)
+
+    def counted(path: str, run):
+        for k in kernels.values():
+            k.launches = 0
+        res = run()
+        local_sync()
+        out["launches"][path] = {k: fn.launches for k, fn in kernels.items()}
+        return res
+
+    def image_stats(img, ref) -> dict:
+        """The spread of ``img`` over the ranks (0: every rank holds the
+        same image), and on rank 0 the slab limits' figures against the
+        single-card ``ref``."""
+        lo, hi = img.clone(), img.clone()
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        st = {"shape": list(img.shape), "spread": float((hi - lo).max()),
+              "finite": bool(torch.isfinite(img).all())}
+        if ref is not None:
+            st["psnr"] = float(stt.psnr(img, ref))
+            st["share_off"] = float(((img - ref).abs() > 1e-6).float().mean())
+        return st
+
+    mesh_g = sharding.make_mesh(1, world, device=dev.type)
+    mesh_d = sharding.make_mesh(world, 1, device=dev.type)
+    batch_meshes = {f"{world}x1": mesh_d}
+    if world == 4:
+        batch_meshes["2x2"] = sharding.make_mesh(2, 2, device=dev.type)
+    if rank == sizes.get("fail_rank"):
+        raise RuntimeError(f"rank {rank} fails on purpose")
+
+    # ---- K1-K4 against their plain versions on this rank's card
+    if sizes.get("check_ply"):
+        small = stt.load_ply(sizes["check_ply"], center=False, device=dev)
+    else:
+        small = stt.surface_scene(sizes["check_n"], seed=0, device=dev)
+    ch, cw = sizes["check_h"], sizes["check_w"]
+    ccam = stt.Camera.create(h=ch, w=cw, position=(0.0, -1.0, 3.5),
+                             device=dev)
+    ccfg = stt.RenderConfig(max_dup_factor=3.0)
+    out["kernels"] = kernel_errors(project_gaussians(
+        small.pack_device(), ccam, ccfg), ch, cw, ccfg)
+    del small
+
+    # ---- frames on (1, N): gaussians over 'g', both routes
+    cam = stt.Camera.create(h=h, w=w, position=(0.0, 0.0, 4.0), device=dev)
+    views = stt.stack_cameras([cam.rotate(0.01 * i) for i in range(frames)])
+    h_local = h // world
+    for kind, n_scene in (("random", n), ("surface", n),
+                          ("random_weak", world * n)):
+        scene, dup = bench_scene(kind.split("_")[0], n_scene, dev)
+        cfg = stt.RenderConfig(max_dup_factor=sizes.get("dup") or dup)
+        local = sharding.shard_scene(scene, mesh_g)
+        fig: dict = {"n": n_scene, "n_local": local.num_gaussians}
+        refs = [None] * frames
+        if lead:                # the batch below holds every view
+            refs = [stt.render_tiled(scene, v, cfg, return_stats=True)
+                    for v in (views if kind == "surface" else views[:1])]
+            fig["ref_overflow"] = sum(int(st["overflow"]) for _, st in refs)
+            refs = [img for img, _ in refs]
+        imgs = {}
+        for route in ("gather", "a2a"):
+            img, ov = counted(f"{kind}_{route}", lambda route=route:
+                              sharding.render_sharded_tiled(
+                                  local, cam, mesh_g, cfg, route=route))
+            st = image_stats(img, refs[0])
+            st["overflow"] = int(ov)
+            if kind != "random_weak":
+                plocal = sharding.shard_scene(scene.pack_device(), mesh_g)
+                pimg, pov = counted(
+                    f"{kind}_{route}_packed", lambda route=route:
+                    sharding.render_sharded_tiled(plocal, cam, mesh_g, cfg,
+                                                  route=route))
+                st["packed_equal"] = bool(torch.equal(pimg, img)
+                                          and int(pov) == 0)
+                del plocal, pimg
+            st["ms_per_frame"] = slowest(
+                lambda i, route=route: sharding.render_sharded_tiled(
+                    local, views[i], mesh_g, cfg, route=route), frames)
+            imgs[route] = img
+            fig[route] = st
+        fig["a2a_vs_gather"] = float((imgs["a2a"] - imgs["gather"]).abs()
+                                     .max())
+        # bytes each rank receives from the other ranks per frame
+        cap = sharding.slab_cap(local.num_gaussians,
+                                sharding._auto_cap_factor(
+                                    local, world, sharding._axis(
+                                        mesh_g, "g")[0]))
+        rec = sharding.RECORD_ROWS * 4
+        fig["bytes_per_frame"] = {
+            "record_gather": (world - 1) * local.num_gaussians * rec,
+            "a2a_records_and_mask": (world - 1) * cap * (rec + 4),
+            "slab_gather": (world - 1) * h_local * w * 3 * 4}
+        if lead:
+            fig["render_tiled_ms_per_frame"] = clock(
+                lambda i: stt.render_tiled(scene, views[i], cfg), frames)
+        if kind == "surface":
+            # ---- batches on (N, 1) (and (2, 2)): frames over 'd'
+            single_ms = fig.get("render_tiled_ms_per_frame")
+            for name, mesh in batch_meshes.items():
+                blocal = sharding.shard_scene(scene, mesh)
+                bimgs, ov = counted(f"batch_{name}", lambda: (
+                    sharding.render_batch_sharded_tiled(blocal, views, mesh,
+                                                        cfg)))
+                sts = [image_stats(bimgs[i], refs[i]) for i in range(frames)]
+                out["batch"][name] = {
+                    "overflow": int(ov),
+                    "spread": max(s["spread"] for s in sts),
+                    "finite": all(s["finite"] for s in sts),
+                    "psnr_min": min(s.get("psnr", math.inf) for s in sts),
+                    "share_off_max": max(s.get("share_off", 0.0)
+                                         for s in sts),
+                    "ms_per_frame": slowest(
+                        lambda i: sharding.render_batch_sharded_tiled(
+                            blocal, views, mesh, cfg), 1, False) / frames,
+                    "render_tiled_ms_per_frame": single_ms}
+                del blocal, bimgs
+            if lead:
+                # ---- the row slabs of an in-process split, stitched
+                proj = project_gaussians(scene, cam, cfg)
+                for ways in sizes["slab_ways"]:
+                    rows = h // ways
+                    parts = counted(f"slab_split_{ways}way", lambda ways=ways,
+                                    rows=rows: [sharding.render_slab_tiled(
+                                        proj, g * rows, rows, w, cfg)
+                                        for g in range(ways)])
+                    got = torch.cat([p for p, _ in parts])
+                    out["slab_split"][str(ways)] = {
+                        "rows": rows,
+                        "overflow": sum(int(o) for _, o in parts),
+                        "finite": bool(torch.isfinite(got).all()),
+                        "psnr": float(stt.psnr(got, refs[0])),
+                        "share_off": float(((got - refs[0]).abs() > 1e-6)
+                                           .float().mean())}
+                del proj, parts, got
+        out["frames"][kind] = fig
+        del scene, local, refs, imgs, img
+    # ---- fit(mesh=): TP over 'g' on (1, N) with 2 views, DP over 'd' on
+    # (N, 1) with one view a rank
+    truth = stt.surface_scene(n, seed=0, device=dev)
+    fcfg = stt.RenderConfig(max_dup_factor=sizes["fit_dup"])
+    start = dataclasses.replace(truth, sh=truth.sh * 0.8)
+    for name, mesh, n_views in ((f"tp_1x{world}", mesh_g, 2),
+                                (f"dp_{world}x1", mesh_d, world)):
+        fcams = stt.orbit_trajectory(cam, n_views, yaw_sweep=0.05)
+        targets = torch.stack([stt.render(truth, c, fcfg) for c in fcams])
+
+        def run(k, **kw):
+            return stt.fit(start, fcams, targets, steps=k, lr=5e-3,
+                           config=fcfg, method="tiled", l1_weight=0.2,
+                           dssim_weight=0.2, **kw)
+
+        fig = {"views": n_views, "local_views": len(
+            sharding._local_frames(fcams, mesh))}
+        if lead:
+            # two single-card runs (they differ by K4's atomic adds), the
+            # first the second's warm-up
+            singles = [run(steps)]
+            fig["single_ms_per_step"] = clock(
+                lambda i: singles.append(run(steps)), 1, False) / steps
+            fig["single_losses"] = [s.losses.cpu().tolist() for s in singles]
+        run(1, mesh=mesh)                                # warm-up
+        res = []
+        fig["ms_per_step"] = counted(f"fit_{name}", lambda: slowest(
+            lambda i: res.append(run(steps, mesh=mesh)), 1, False)) / steps
+        fit = res[-1]
+        fig["losses"] = fit.losses.cpu().tolist()
+        whole = [getattr(fit.scene, f.name) for f in
+                 dataclasses.fields(fit.scene)]
+        fig["whole_n"] = fit.scene.num_gaussians
+        fig["whole_finite"] = all(bool(torch.isfinite(t).all())
+                                  for t in whole)
+        fig["whole_moved"] = max(float((a - b).abs().max()) for a, b in zip(
+            whole, (getattr(start, f.name) for f in
+                    dataclasses.fields(start))))
+        out["fits"][name] = fig
+        del targets, res, fit, whole
+    del truth, start
+    return out
+
+
+def check_parallel(results: list, sizes: dict, on_card: bool) -> dict:
+    """Hold every rank's results from :func:`parallel_rank` to phase 9's
+    limits (any miss raises) and return the phase's figures.
+
+    A sharded fit's loss history must lie within ``tol = max(
+    FIT_LOSS_RTOL, FIT_GAP_FACTOR * gap)`` (relative, every step) of the
+    nearer of two single-card runs, ``gap`` being those two runs' own
+    relative difference: across cards the gradients are summed in another
+    order (the reduce-scatter of the record cotangents, the average over
+    'd'), a rounding of the same kind as K4's run-dependent atomic adds
+    that make ``gap``."""
+    import numpy as np
+
+    world = len(results)
+    lead = results[0]
+    for r, res in enumerate(results):
+        who = f"rank {r} ({res['device']})"
+        k = res["kernels"]
+        require(k["finite"] and k["overflow"] == 0,
+                f"{who}: kernel check frame non-finite or overflowing")
+        require(k["K1_equal"], f"{who}: K1 differs from its plain version")
+        require(k["K2_err"] <= K2_TOL, f"{who}: K2 max abs error "
+                                       f"{k['K2_err']} > {K2_TOL}")
+        require(k["K3_err"] <= K3_TOL and k["K3_cut_equal"],
+                f"{who}: K3 max abs error {k['K3_err']} > {K3_TOL} or its "
+                f"cut differs")
+        require(k["K4_rel"] <= K4_REL_TOL and k["K4_cos"] >= K4_MIN_COS,
+                f"{who}: K4 per-field error {k['K4_rel']}, cosine "
+                f"{k['K4_cos']}")
+        for path, got in res["launches"].items():
+            if not on_card:         # plain versions only: nothing counts
+                require(not any(got.values()),
+                        f"{who}: {path} counted launches on the CPU: {got}")
+            elif path.startswith("fit_"):
+                fig = res["fits"][path[4:]]
+                want = fig["local_views"] * sizes["steps"]
+                require(got["K3"] == got["K4"] == want,
+                        f"{who}: {path} launched K3/K4 {got['K3']}/"
+                        f"{got['K4']} times, not once a local view and "
+                        f"step ({want})")
+            else:
+                require(got["K1"] > 0 and got["K2"] > 0,
+                        f"{who}: K1/K2 did not launch on {path}: {got}")
+        for kind, fig in res["frames"].items():
+            require(fig.get("ref_overflow", 0) == 0,
+                    f"{who}: {kind}'s single-card references overflow")
+            for route in ("gather", "a2a"):
+                st = fig[route]
+                what = f"{who}: {kind} {fig['n']} on (1, {world}) {route}"
+                require(st["overflow"] == 0, f"{what}: overflow "
+                                             f"{st['overflow']}")
+                require(st["finite"] and st["spread"] == 0.0,
+                        f"{what}: non-finite, or ranks hold images "
+                        f"{st['spread']} apart")
+                require(st.get("packed_equal", True),
+                        f"{what}: the packed shard's image differs")
+                if "psnr" in st:
+                    require(st["psnr"] >= SLAB_MIN_PSNR
+                            and st["share_off"] < SLAB_MAX_DIFF_SHARE,
+                            f"{what}: {st['psnr']:.2f} dB, "
+                            f"{st['share_off']:.5f} of pixels off > 1e-6 "
+                            f"against one card's render_tiled")
+            require(fig["a2a_vs_gather"] <= A2A_GATHER_TOL,
+                    f"{who}: {kind} a2a differs from gather by "
+                    f"{fig['a2a_vs_gather']}")
+        for name, st in res["batch"].items():
+            what = f"{who}: batch on ({name.replace('x', ', ')})"
+            require(st["overflow"] == 0 and st["finite"]
+                    and st["spread"] == 0.0,
+                    f"{what}: overflow {st['overflow']}, or non-finite, or "
+                    f"ranks hold images {st['spread']} apart")
+            require(st["psnr_min"] >= SLAB_MIN_PSNR
+                    and st["share_off_max"] < SLAB_MAX_DIFF_SHARE,
+                    f"{what}: {st['psnr_min']:.2f} dB, "
+                    f"{st['share_off_max']:.5f} of pixels off > 1e-6")
+        for name, fig in res["fits"].items():
+            require(fig["losses"] == lead["fits"][name]["losses"],
+                    f"{who}: fit {name}'s losses differ from rank 0's")
+            require(fig["whole_n"] == sizes["n"] and fig["whole_finite"]
+                    and fig["whole_moved"] > 0,
+                    f"{who}: fit {name}'s whole parameters: "
+                    f"{fig['whole_n']} gaussians, finite "
+                    f"{fig['whole_finite']}, moved {fig['whole_moved']}")
+    for ways, st in lead["slab_split"].items():
+        require(st["overflow"] == 0 and st["finite"]
+                and st["psnr"] >= SLAB_MIN_PSNR
+                and st["share_off"] < SLAB_MAX_DIFF_SHARE,
+                f"{ways}-way slab split ({st['rows']} rows): overflow "
+                f"{st['overflow']}, {st['psnr']:.2f} dB, "
+                f"{st['share_off']:.5f} of pixels off > 1e-6")
+
+    def rel_diff(a, b) -> float:
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.max(np.abs(a - b) / np.abs(b)))
+
+    fits = {}
+    for name, fig in lead["fits"].items():
+        singles = fig["single_losses"]
+        require(all(np.isfinite(s).all() for s in singles + [fig["losses"]]),
+                f"fit {name}: non-finite loss")
+        gap = rel_diff(*singles)
+        tol = max(FIT_LOSS_RTOL, FIT_GAP_FACTOR * gap)
+        rel = min(rel_diff(fig["losses"], s) for s in singles)
+        require(rel <= tol, f"fit {name}: losses {fig['losses']} against "
+                            f"single-card {singles}: {rel:.3e} relative > "
+                            f"{tol:.3e}")
+        fits[name] = {**fig, "single_run_to_run_rel_diff": gap,
+                      "max_rel_loss_diff": rel, "tolerance": tol}
+    launches = {f"rank_{r}": res["launches"] for r, res in
+                enumerate(results)}
+    totals = {k: sum(got[k] for res in results
+                     for got in res["launches"].values())
+              for k in ("K1", "K2", "K3", "K4")}
+    return {"world_size": world, "frames": lead["frames"],
+            "batch": lead["batch"], "slab_split": lead["slab_split"],
+            "fits": fits, "kernel_check": [res["kernels"] for res in results],
+            "launches": launches, "launch_totals": totals,
+            "packed_equal": {kind: {r: lead["frames"][kind][r][
+                "packed_equal"] for r in ("gather", "a2a")}
+                for kind in ("random", "surface")}}
+
+
+def run_parallel_world(world: int, device: str, sizes: dict, workdir: str,
+                       timeout: float) -> list:
+    """Start ``world`` rank processes of this script (one a card, NCCL;
+    gloo ranks on the CPU), each running :func:`parallel_rank` and writing
+    its results under ``workdir``; return them in rank order.  Raises,
+    with the failing rank's standard error, as soon as one rank fails, and
+    when the world outlives ``timeout`` seconds."""
+    from splat_tpu_torch.parallel import dryrun
+
+    dryrun.join_ranks(dryrun.start_ranks(
+        [sys.executable, os.path.abspath(__file__), "--sizes",
+         json.dumps(sizes), "--out", workdir, "--timeout", str(timeout)],
+        world, device, os.path.join(workdir, "store")), timeout)
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank_{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 9's world (the arguments ``run_parallel_world``
+    gives it)."""
+    import torch.distributed as dist
+    from splat_tpu_torch.parallel import dryrun
+
+    ap = dryrun.rank_parser("one rank of chip_smoke.py's phase 9")
+    ap.add_argument("--sizes", required=True, help="JSON: parallel_rank's")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    dev = dryrun.init_rank(args.rank, args.world, args.init_file,
+                           args.device, args.timeout)
+    try:
+        res = parallel_rank(args.rank, args.world, dev,
+                            json.loads(args.sizes))
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(args.out, f"rank_{args.rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def parallel_path() -> dict:
+    """Phase 9: a world of one NCCL rank a visible card.  Returns the
+    phase's figures (``check_parallel``'s)."""
+    import torch
+
+    world = torch.cuda.device_count()
+    link = card_links(world)
+    card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0], "world_size": 1}
-    torch.cuda.set_device(device)
+        check=True).stdout.strip().splitlines()
+    print(f"[parallel] {world} card(s): {'; '.join(card)}; link: {link}")
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    torch.cuda.empty_cache()            # rank 0 shares card 0 with us
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
-                                world_size=1, rank=0)
-        try:
-            mesh = sharding.make_mesh(1, 1, device="cuda")
-            scene, dup = bench_scene("surface", N_BIG, device)
-            local = sharding.shard_scene(scene, mesh)
-            cfg = stt.RenderConfig(max_dup_factor=dup)
-            cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0),
-                                    device=device)
-            views = stt.stack_cameras([cam.rotate(0.01 * i)
-                                       for i in range(PARALLEL_FRAMES)])
-            refs = [stt.render_tiled(scene, v, cfg) for v in views]
-            # each sharded path is driven with the counts set to 0 just
-            # before it and read just after
-            launches: dict = {}
-
-            def counted(path: str, run):
-                zero_counts()
-                out = run()
-                launches[path] = {"K1": expand.launches,
-                                  "K2": raster.launches}
-                require(expand.launches > 0 and raster.launches > 0,
-                        f"K1/K2 did not launch on {path}: {launches[path]}")
-                return out
-
-            psnr = {}
-            plocal = sharding.shard_scene(scene.pack_device(), mesh)
-            res["packed_equal"] = {}
-            for route in ("gather", "a2a"):
-                img, ov = counted(
-                    f"render_sharded_tiled_{route}",
-                    lambda route=route: sharding.render_sharded_tiled(
-                        local, cam, mesh, cfg, route=route))
-                require(int(ov) == 0, f"sharded {route}: overflow {int(ov)}")
-                psnr[route] = slab_check(img, refs[0], f"sharded {route}")
-                # phase 11's sharded case: the packed scene's shard
-                pimg, pov = counted(
-                    f"render_sharded_tiled_{route}_packed",
-                    lambda route=route: sharding.render_sharded_tiled(
-                        plocal, cam, mesh, cfg, route=route))
-                require(int(pov) == 0 and torch.equal(pimg, img),
-                        f"sharded {route}: the packed shard's image differs "
-                        f"from the unpacked shard's")
-                res["packed_equal"][route] = True
-            imgs, ov = counted(
-                "render_batch_sharded_tiled",
-                lambda: sharding.render_batch_sharded_tiled(local, views,
-                                                            mesh, cfg))
-            require(int(ov) == 0, f"sharded batch: overflow {int(ov)}")
-            psnr["batch_min"] = min(
-                slab_check(imgs[i], refs[i], f"sharded batch frame {i}")
-                for i in range(PARALLEL_FRAMES))
-            proj = project_gaussians(scene, cam, cfg)
-            slab_psnr = {}
-            for n_g in (2, 4, 8):
-                h_local = H // n_g
-                parts = counted(
-                    f"render_slab_tiled_{n_g}way",
-                    lambda n_g=n_g, h_local=h_local: [
-                        sharding.render_slab_tiled(proj, g * h_local,
-                                                   h_local, W, cfg)
-                        for g in range(n_g)])
-                require(all(int(o) == 0 for _, o in parts),
-                        f"slab split {n_g}: overflow")
-                slab_psnr[str(n_g)] = slab_check(
-                    torch.cat([p for p, _ in parts]), refs[0],
-                    f"{n_g}-way slab split ({h_local} rows)")
-            res["psnr_vs_render_tiled"] = psnr
-            res["slab_split_psnr"] = slab_psnr
-            res["ms_per_frame"] = {
-                "render_tiled": frames_ms(
-                    lambda v: stt.render_tiled(scene, v, cfg), views),
-                **{f"sharded_{r}": frames_ms(
-                    lambda v, r=r: sharding.render_sharded_tiled(
-                        local, v, mesh, cfg, route=r), views)
-                   for r in ("gather", "a2a")}}
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            sharding.render_batch_sharded_tiled(local, views, mesh, cfg)
-            torch.cuda.synchronize()
-            res["ms_per_frame"]["sharded_batch_host_clock"] = (
-                (time.perf_counter() - t0) * 1e3 / PARALLEL_FRAMES)
-            del scene, local, plocal, proj, refs, imgs
-
-            # training: phase 6's 1M surface views, single-device, then on
-            # the mesh (data parallel over 'd', tensor parallel over 'g':
-            # each axis of one rank)
-            truth = stt.surface_scene(N_BIG, seed=0, device=device)
-            cams = stt.orbit_trajectory(cam, 2, yaw_sweep=0.05)
-            fcfg = stt.RenderConfig(max_dup_factor=1.45)
-            targets = torch.stack([stt.render(truth, c, fcfg) for c in cams])
-            start = dataclasses.replace(truth, sh=truth.sh * 0.8)
-            del truth
-            fits, fit_ms = {}, {}
-            for name, kw in (("single", {}), ("mesh_1x1", {"mesh": mesh})):
-                def run(steps, kw=kw):
-                    return stt.fit(start, cams, targets, steps=steps,
-                                   lr=5e-3, config=fcfg, method="tiled",
-                                   l1_weight=0.2, dssim_weight=0.2, **kw)
-                # warm-up; the single-device fit's is a whole second run
-                warm = run(BIG_FIT_STEPS if name == "single" else 1)
-                torch.cuda.synchronize()
-                t0, t1 = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-                zero_counts()
-                t0.record()
-                out = run(BIG_FIT_STEPS)
-                t1.record()
-                torch.cuda.synchronize()
-                if name != "single":
-                    launches[f"fit_{name}"] = {"K3": fwd.launches,
-                                               "K4": bwd.launches}
-                    want = BIG_FIT_STEPS * len(cams)
-                    require(fwd.launches == bwd.launches == want,
-                            f"fit {name}: K3/K4 launched {fwd.launches}/"
-                            f"{bwd.launches} times, not once a view and "
-                            f"step ({want})")
-                fit_ms[name] = t0.elapsed_time(t1) / BIG_FIT_STEPS
-                fits[name] = out.losses.cpu().numpy().astype(np.float64)
-                require(bool(np.isfinite(fits[name]).all()),
-                        f"fit {name}: non-finite loss")
-                if name == "single":
-                    singles = [warm.losses.cpu().numpy().astype(np.float64),
-                               fits[name]]
-
-            def rel_diff(a, b) -> float:
-                return float(np.max(np.abs(a - b) / np.abs(b)))
-
-            # the single-device fit varies run to run on the card (atomic
-            # adds in K4 and in autograd's index backward): the mesh's
-            # history is held against the nearer of two single-device runs
-            res["fit_single_run_to_run_rel_diff"] = rel_diff(*singles)
-            rel = min(rel_diff(fits["mesh_1x1"], s) for s in singles)
-            require(rel <= FIT_LOSS_RTOL, f"fit on the mesh: losses "
-                    f"{fits['mesh_1x1']} vs single {singles} "
-                    f"({rel:.2e} relative)")
-            res["fit_mesh_1x1_max_rel_loss_diff"] = rel
-            res["launches"] = launches
-            res["fit_ms_per_step"] = fit_ms
-            res["fit_losses"] = {k: [float(x) for x in v]
-                                 for k, v in fits.items()}
-            del start, targets
-        finally:
-            dist.destroy_process_group()
+        results = run_parallel_world(world, "cuda", PARALLEL_SIZES, tmp,
+                                     PARALLEL_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    res = check_parallel(results, PARALLEL_SIZES, on_card=True)
     t0 = time.perf_counter()
     dry = subprocess.run(
         [sys.executable, "-m", "splat_tpu_torch.parallel.dryrun", "--world",
-         "1", "--timeout", "300"], cwd=ROOT, capture_output=True, text=True,
-        timeout=360)
-    res["dryrun_s"] = time.perf_counter() - t0
+         str(world), "--timeout", "120"], cwd=ROOT, capture_output=True,
+        text=True, timeout=180)
     print(dry.stdout.strip())
-    require(dry.returncode == 0, f"dryrun --world 1 exited "
-                                 f"{dry.returncode}: {dry.stderr[-2000:]}")
-    for key, ms in res["ms_per_frame"].items():
-        print(f"[parallel] {key}: {ms:.3f} ms/frame")
-    for key, ms in res["fit_ms_per_step"].items():
-        print(f"[parallel] fit {key}: {ms:.3f} ms/step")
+    require(dry.returncode == 0, f"dryrun --world {world} exited "
+                                 f"{dry.returncode}: {dry.stderr[-3000:]}")
+    res.update(card=card, link=link, world_s=world_s,
+               dryrun_s=time.perf_counter() - t0)
+    for kind, fig in res["frames"].items():
+        print(f"[parallel] {kind} {fig['n']} @{W}x{H} on (1, {world}): "
+              f"gather {fig['gather']['ms_per_frame']:.3f}, a2a "
+              f"{fig['a2a']['ms_per_frame']:.3f} ms/frame (slowest rank), "
+              f"one card's render_tiled "
+              f"{fig['render_tiled_ms_per_frame']:.3f}; "
+              f"{fig['gather'].get('psnr', math.inf):.2f} / "
+              f"{fig['a2a'].get('psnr', math.inf):.2f} dB; bytes a rank "
+              f"receives a frame {fig['bytes_per_frame']}")
+    for name, st in res["batch"].items():
+        print(f"[parallel] batch of {PARALLEL_FRAMES} on ({name}): "
+              f"{st['ms_per_frame']:.3f} ms/frame, one card "
+              f"{st['render_tiled_ms_per_frame']:.3f}; min "
+              f"{st['psnr_min']:.2f} dB")
+    for name, fig in res["fits"].items():
+        print(f"[parallel] fit {name}, {fig['views']} views: "
+              f"{fig['ms_per_step']:.3f} ms/step, one card "
+              f"{fig['single_ms_per_step']:.3f}; losses within "
+              f"{fig['max_rel_loss_diff']:.3e} (tol {fig['tolerance']:.3e}"
+              f", single run to run {fig['single_run_to_run_rel_diff']:.3e})")
     print(json.dumps({"parallel": res}, default=str).replace(
         "Infinity", '"inf"'))
     return res
@@ -1389,7 +1754,7 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
 
     expand, raster = kernels[:2]
     cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
-    figures: dict = {"sharded_world_1_equal": sharded_equal}
+    figures: dict = {"sharded_equal": sharded_equal}
     launches = {"K1": 0, "K2": 0}
     for kind in ("random", "surface"):
         scene, dup = bench_scene(kind, N_BIG, device)
@@ -1505,8 +1870,13 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
     return {"figures": figures, "launches": launches}
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only-parallel", action="store_true",
+                    help="phases 1 and 9 alone (a machine of several cards)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1540,6 +1910,12 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s")
 
     device = torch.device("cuda", 0)
+    if args.only_parallel:
+        parallel_path()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
     recs = {}
     # the surface frame holds the heavy tiles; its plain versions walk
@@ -1586,10 +1962,9 @@ def main() -> int:
     for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
         k["cli_launches"] = cli_counts["fit" if key in ("K3", "K4")
                                        else "inference"][key]
-    par = parallel_path(device, kernels)
+    par = parallel_path()
     for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
-        k["parallel_launches"] = sum(n.get(key, 0)
-                                     for n in par["launches"].values())
+        k["parallel_launches"] = par["launch_totals"][key]
     k1c, k2s, _ = knob_path(device, kernels)
     packed = packed_path(device, kernels, par["packed_equal"])
     k1["packed_launches"] = packed["launches"]["K1"]
@@ -1602,4 +1977,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if "--rank" in sys.argv[1:]:          # a rank of phase 9's world
+        sys.exit(rank_main(sys.argv[1:]))
+    sys.exit(main(sys.argv[1:]))

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import os
 import subprocess
 import sys
@@ -33,54 +34,96 @@ PACKAGE_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
-def init_rank(rank: int, world: int, init_file: str,
-              device: str) -> torch.device:
+def init_rank(rank: int, world: int, init_file: str, device: str,
+              timeout: float = 600.0) -> torch.device:
     """Join a world of ``world`` ranks through the file store
-    ``init_file``: NCCL with card ``rank % cards`` for ``device="cuda"``,
-    gloo with one CPU thread for ``device="cpu"``.  Returns the rank's
-    device."""
+    ``init_file``: NCCL with card ``rank % cards`` (made the current
+    device and bound to the process group) for ``device="cuda"``, gloo
+    with one CPU thread for ``device="cpu"``.  A collective that waits
+    longer than ``timeout`` seconds for a peer fails instead of blocking
+    the rank forever.  Returns the rank's device."""
+    kw = {}
     if device == "cuda":
         dev = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(dev)
-        backend = "nccl"
+        backend, kw["device_id"] = "nccl", dev
     elif device == "cpu":
         torch.set_num_threads(1)
         dev, backend = torch.device("cpu"), "gloo"
     else:
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     dist.init_process_group(backend, init_method=f"file://{init_file}",
-                            world_size=world, rank=rank)
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout),
+                            **kw)
     return dev
 
 
 def start_ranks(argv: list, world: int, device: str,
                 init_file: str) -> list:
     """Start ``argv + [--rank r --world N --init-file F --device D]`` for
-    r in 0..N-1, each able to import this package; returns the
-    processes (join them with :func:`join_ranks`)."""
+    r in 0..N-1, each able to import this package, its standard error
+    sent to ``rank_<r>.err`` beside ``init_file``; returns the processes
+    (join them with :func:`join_ranks`).  On the card the kernels are
+    built here first, so that the ranks load one library instead of each
+    running ``nvcc``."""
+    if device == "cuda":
+        from splat_tpu_torch import _build
+        _build.build()
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [PACKAGE_PARENT] + [p for p in [env.get("PYTHONPATH")] if p])
-    return [subprocess.Popen(
-        list(argv) + ["--rank", str(r), "--world", str(world),
-                      "--init-file", init_file, "--device", device],
-        env=env) for r in range(world)]
+    procs = []
+    for r in range(world):
+        err_path = os.path.join(os.path.dirname(os.path.abspath(init_file)),
+                                f"rank_{r}.err")
+        with open(err_path, "w") as err:
+            p = subprocess.Popen(
+                list(argv) + ["--rank", str(r), "--world", str(world),
+                              "--init-file", init_file, "--device", device],
+                env=env, stderr=err)
+        p.err_path = err_path
+        procs.append(p)
+    return procs
+
+
+def _tail(path: str, nbytes: int = 4000) -> str:
+    with open(path, "rb") as f:
+        f.seek(max(os.path.getsize(path) - nbytes, 0))
+        return f.read().decode(errors="replace")
 
 
 def join_ranks(procs: list, timeout: float) -> None:
-    """Wait for every rank; raise if one fails or they outlive
-    ``timeout`` seconds together (the rest are then killed)."""
+    """Wait for every rank.  As soon as one exits non-zero the others are
+    killed (they may be blocked in a collective that rank never joins)
+    and this raises with that rank's standard error; so it does when the
+    ranks outlive ``timeout`` seconds together."""
     deadline = time.monotonic() + timeout
     try:
-        codes = [p.wait(timeout=max(deadline - time.monotonic(), 0.0))
-                 for p in procs]
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = next((r for r, c in enumerate(codes)
+                           if c not in (None, 0)), None)
+            if (failed is not None or None not in codes
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.05)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    if any(codes):
-        raise RuntimeError(f"ranks exited with codes {codes}")
+    if failed is not None:
+        raise RuntimeError(
+            f"rank {failed} of {len(procs)} exited with code "
+            f"{procs[failed].returncode}; its standard error ends:\n"
+            f"{_tail(procs[failed].err_path)}")
+    late = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if late:
+        raise RuntimeError(
+            f"ranks {late} of {len(procs)} still ran after {timeout} s; "
+            f"rank {late[0]}'s standard error ends:\n"
+            f"{_tail(procs[late[0]].err_path)}")
 
 
 def rank_parser(description: str = "") -> argparse.ArgumentParser:
@@ -201,7 +244,8 @@ def main(argv=None) -> int:
                  "--timeout", str(args.timeout)], args.world, args.device,
                 os.path.join(tmp, "store")), args.timeout)
         return 0
-    dev = init_rank(args.rank, args.world, args.init_file, args.device)
+    dev = init_rank(args.rank, args.world, args.init_file, args.device,
+                    args.timeout)
     try:
         line = dryrun_multichip(args.world, dev)
         if args.rank == 0:

@@ -7,7 +7,10 @@ Two axes of a ``(d, g)`` device mesh, as in ``splat_tpu``:
   contiguous shard of the gaussians; the compact projected records (13
   floats each) are all-gathered, or routed to the row slabs they touch by
   one ``all_to_all_single``; each rank composites its own horizontal slab
-  of rows, and the slabs are all-gathered into the full image.
+  of rows, and the slabs are all-gathered into the full image.  A slab is
+  binned on whole tiles of the image's own grid, its pair runs at one
+  card's window offsets (:func:`render_slab_tiled`), so the image equals
+  one card's ``render_tiled``.
   Compositing is order-dependent in depth, so shards cannot be composited
   locally and summed: gather the compact records, composite the slab.
 * **data parallelism, axis "d"**: the frames of a trajectory batch.
@@ -36,7 +39,6 @@ tiled renders, K3 and K4 (``core_from_proj``) in
 from __future__ import annotations
 
 import dataclasses
-import weakref
 
 import numpy as np
 import torch
@@ -45,9 +47,9 @@ import torch.distributed as dist
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.ops.projection import (ProjectedGaussians,
                                             project_gaussians)
-from splat_tpu_torch.render.binning import (build_tile_bins,
+from splat_tpu_torch.render.binning import (TileBins, build_tile_bins,
                                             decode_radius_bits,
-                                            quantize_radius_bits)
+                                            quantize_radius_bits, tile_spans)
 from splat_tpu_torch.render.dense import composite_rows, depth_order
 from splat_tpu_torch.render.diff import (_check_config, core_from_proj,
                                          finish_image)
@@ -72,7 +74,10 @@ def make_mesh(n_data: int = 1, n_gaussian: int | None = None,
     Start the ranks first (``torchrun``, or
     :mod:`splat_tpu_torch.parallel.dryrun`) with
     ``torch.distributed.init_process_group``; on the card each rank sets
-    ``torch.cuda.set_device(local_rank)`` before it."""
+    ``torch.cuda.set_device(local_rank)`` before it and builds its scene
+    and cameras with ``device=torch.device("cuda", local_rank)``: the
+    constructors' default is cuda:0 on every rank, and the renders and
+    ``fit(mesh=)`` refuse a tensor on another card than the rank's."""
     from torch.distributed.device_mesh import init_device_mesh
 
     total = dist.get_world_size() if dist.is_initialized() else 1
@@ -107,12 +112,21 @@ def _axis(mesh, name: str):
 
 def _check_device(mesh, t) -> None:
     """``t`` (a tensor or a scene of either layout) lies where the mesh's
-    ranks compute."""
+    ranks compute: on the CPU for gloo, and for NCCL on this rank's own
+    card, the current device (a scene or camera built without
+    ``device=`` lands on cuda:0 on every rank)."""
     _axis(mesh, "g")
     if mesh.device_type != t.device.type:
         raise ValueError(
             f"tensors on {t.device} cannot take part in a mesh of "
             f"{mesh.device_type} ranks (no copy through the host)")
+    if t.device.type == "cuda" and t.device.index != \
+            torch.cuda.current_device():
+        raise ValueError(
+            f"tensors on {t.device}, but this rank computes on "
+            f"cuda:{torch.cuda.current_device()}: build each rank's scene "
+            f"and cameras with device=torch.device('cuda', local_rank) "
+            f"after torch.cuda.set_device(local_rank)")
 
 
 def shard_scene(scene, mesh):
@@ -289,37 +303,109 @@ def _slab_reach(radius_px: torch.Tensor, visible: torch.Tensor):
         radius_px[:, 0].detach(), radius_px[:, 1].detach(), visible))[1]
 
 
-def _meets_slab(cy: torch.Tensor, ry: torch.Tensor, h_local: int):
-    """Where a box of centre row ``cy`` (in the slab's frame) and
-    half-height ``ry`` from :func:`_slab_reach` can reach a row of a slab
-    of ``h_local`` rows, with a pixel of margin.  Both routes gate with
-    it, so a slab keeps every pair a single-device render keeps in its
-    rows (``splat_tpu`` gates with the unquantized radius and loses the
-    pairs that reach a slab's edge row only through the quantization)."""
-    return (cy + ry > -1.0) & (cy - ry < h_local + 1.0)
+def _meets_slab(cy: torch.Tensor, ry: torch.Tensor, row0, rows):
+    """Where a box of centre row ``cy`` and half-height ``ry`` from
+    :func:`_slab_reach` (both in the image's frame, as binning reads them)
+    reaches the rows [row0, row0 + rows).  Pixel centres lie half a pixel
+    inside those rows, so every pair of the single-device render that
+    touches them is kept.  On a frame of whole tiles (:func:`_tile_frame`,
+    a power-of-two tile height) it keeps exactly the gaussians that the
+    single-device binning puts in the frame's tiles: binning clamps a box
+    into the grid, so a wider gate would add the boxes that end outside
+    the frame to its edge tiles, and with them pairs that move K2's exit.
+    Both routes gate with it (``splat_tpu`` gates with the unquantized
+    radius and loses the pairs that reach a slab only through the
+    quantization).  ``row0`` and ``rows`` may be (n, 1) tensors."""
+    return (cy + ry >= row0) & (cy - ry < row0 + rows)
 
 
 def _slab_view(proj: ProjectedGaussians, row0: int,
                h_local: int) -> ProjectedGaussians:
-    """The records in the frame of the row slab [row0, row0 + h_local):
+    """The records in the frame of the rows [row0, row0 + h_local):
     centres shifted up by row0, visibility re-gated to the splats whose
-    box can reach a row of the slab (:func:`_meets_slab`)."""
-    cy = proj.center_px[:, 1] - float(row0)
+    box reaches those rows (:func:`_meets_slab`)."""
+    cy = proj.center_px[:, 1]
     ry = _slab_reach(proj.radius_px, proj.visible)
     return dataclasses.replace(
-        proj, center_px=torch.stack([proj.center_px[:, 0], cy], dim=-1),
-        visible=proj.visible & _meets_slab(cy, ry, h_local))
+        proj, center_px=torch.stack([proj.center_px[:, 0],
+                                     cy - float(row0)], dim=-1),
+        visible=proj.visible & _meets_slab(cy, ry, row0, h_local))
+
+
+def _tile_frame(row0, h_local: int, tile_h: int):
+    """(first row, rows) of the frame the row slab [row0, row0 + h_local)
+    is binned and composited in: the whole tile rows of the image's own
+    tile grid that hold the slab.  Each of the slab's tiles then holds the
+    pixels of the single-device render's tile there, and K2's whole-tile
+    exit, which every pixel of a tile votes on (those past the image's
+    last row too), can fall where it falls on one device; a slab binned
+    from its own first row cuts every tile elsewhere.  ``row0`` may be an
+    int tensor (one slab a row)."""
+    top = row0 - row0 % tile_h
+    return top, (row0 + h_local + tile_h - 1) // tile_h * tile_h - top
+
+
+def _pairs_above(proj: ProjectedGaussians, tile_row, w: int,
+                 config: RenderConfig) -> torch.Tensor:
+    """The pairs that the single-device binning of the records ``proj``
+    puts in the tile rows above ``tile_row`` (an int, or an (n, 1) int
+    tensor: then one count a row), int64: where one card's pair buffer
+    starts the runs of that tile row.  Culled pairs (``cull_pairs``) leave
+    the runs; this count keeps them."""
+    rbits = quantize_radius_bits(proj.radius_px[:, 0], proj.radius_px[:, 1],
+                                 proj.visible)
+    tx0, ty0, span_w, counts = tile_spans(
+        proj.center_px[:, 0], proj.center_px[:, 1], rbits, config.tile_w,
+        config.tile_h, -(-w // config.tile_w), 1 << 30)
+    span_h = counts // torch.clamp(span_w, min=1)
+    rows = torch.clamp(torch.clamp(ty0 + span_h, max=tile_row) - ty0, min=0)
+    return (span_w.to(torch.int64) * rows).sum(dim=-1)
+
+
+def _at_offset(bins: TileBins, offset: torch.Tensor,
+               chunk: int) -> TileBins:
+    """``bins`` with its pair runs moved ``offset`` < ``chunk`` columns on
+    (a () int64 tensor on the device: no host sync), so that K2's windows
+    fall on them as on one card's buffer.  Inference only: ``ranks``
+    stays where it was."""
+    feats = bins.features
+    if feats.shape[1] == 0:
+        return bins
+    src = torch.arange(feats.shape[1] + chunk, device=feats.device) - offset
+    off = offset.to(torch.int32)
+    return dataclasses.replace(
+        bins, features=feats[:, src.clamp(0, feats.shape[1] - 1)],
+        tile_start=bins.tile_start + off, tile_end=bins.tile_end + off)
 
 
 def render_slab_tiled(proj: ProjectedGaussians, row0: int, h_local: int,
-                      w: int, config: RenderConfig):
-    """Tile-binned rasterization of the row slab [row0, row0 + h_local):
-    the records moved into the slab's frame (:func:`_slab_view`), then the
-    single-device binning (K1) and compositing (K2) on the slab's own tile
-    grid.  Returns (slab image, binning overflow)."""
-    proj = _slab_view(proj, row0, h_local)
-    bins = build_tile_bins(proj, h_local, w, config)
-    return rasterize_tiles(bins, h_local, w, config), bins.overflow
+                      w: int, config: RenderConfig,
+                      pairs_above: torch.Tensor | None = None):
+    """Tile-binned rasterization of the row slab [row0, row0 + h_local),
+    equal to the rows of one card's ``render_tiled`` of the same records:
+
+    * the records are moved into the slab's frame of whole tiles of the
+      image's own grid (:func:`_tile_frame`, :func:`_slab_view`) and
+      binned (K1) and composited (K2) there, and the slab's rows cut out;
+    * K2 walks a tile's pairs in ``chunk``-pair windows aligned to the
+      pair buffer's own offsets (``splat_tpu``'s windows) and checks its
+      whole-tile exit once a window, so the slab's runs are moved to where
+      one card's buffer starts them, modulo ``chunk``: after the
+      ``pairs_above`` pairs that one card bins in the tile rows above the
+      frame (default: counted from ``proj``, which must then hold every
+      record, as the gather route's does).
+
+    Slabs cut from their own first rows and buffers put 23% of the pixels
+    of the 1M random frame @1080p, split over four H100s, more than 1e-6
+    off one card's.  Returns (slab image, binning overflow)."""
+    top, rows = _tile_frame(row0, h_local, config.tile_h)
+    if pairs_above is None:
+        pairs_above = _pairs_above(proj, top // config.tile_h, w, config)
+    bins = build_tile_bins(_slab_view(proj, top, rows), rows, w, config)
+    img = rasterize_tiles(
+        _at_offset(bins, pairs_above % config.chunk, config.chunk), rows, w,
+        config)
+    return img[row0 - top:row0 - top + h_local], bins.overflow
 
 
 def _resolve_route(route: str, n_g: int) -> str:
@@ -339,14 +425,22 @@ def _slab_frame(scene, camera, config, route, cap_factor, group, n_g, g,
                 h_local):
     """One frame's (full image, this rank's routing + binning overflow)."""
     proj = project_gaussians(scene, camera.to(scene.device), config)
+    above = None             # the gather route's slab counts it itself
     if route == "gather":
         proj = _gather_records(proj, group)
         overflow = torch.zeros((), dtype=torch.int64, device=scene.device)
     else:
+        # every slab's pairs above its frame, summed over the ranks' records
+        top, _ = _tile_frame(torch.arange(n_g, device=scene.device)[:, None]
+                             * h_local, h_local, config.tile_h)
+        above = _pairs_above(proj, top // config.tile_h, camera.w, config)
+        dist.all_reduce(above, group=group)
+        above = above[g]
         proj, overflow = _route_records_by_slab(proj, n_g, h_local,
-                                                cap_factor, group)
+                                                cap_factor, group,
+                                                config.tile_h)
     slab, bin_ov = render_slab_tiled(proj, g * h_local, h_local, camera.w,
-                                     config)
+                                     config, above)
     return _all_gather(slab, group), overflow + bin_ov
 
 
@@ -543,9 +637,6 @@ def _sharded_score(scene, n_g: int, group) -> float:
 # scores ~0.9+, y-sorted ~1/n_g and octree-ordered ~(1/2)^3.
 _SPATIAL_SCORE_THRESHOLD = 0.35
 
-_CAP_FACTOR_CACHE: dict = {}
-
-
 def _auto_cap_factor(scene, n_g: int, group=None) -> float:
     """Slab-cap factor for route='a2a' when the caller pins none: the
     default ``min(1, 4/n_g)`` for scenes in random order, raised toward
@@ -554,24 +645,23 @@ def _auto_cap_factor(scene, n_g: int, group=None) -> float:
     scene, or with ``group`` this rank's shard of it (the score then comes
     from the shards' boxes, gathered over ``group``).
 
-    The score is computed once per (scene, N, n_g) and cached, keyed as
-    in ``splat_tpu`` by the scene's id and held only while that scene
-    object lives, so every rank of an SPMD program hits or misses, and
-    joins the gather, together."""
+    The factor is memoized on the scene object, per (N, n_g), so a hit
+    depends only on whether this object was scored before.  Every rank of
+    an SPMD program passes its shard object through the same calls, so
+    all hit or all miss and join the gather together; a memo kept in a
+    table of the process (``splat_tpu`` keys one by ``id(scene)`` and
+    empties it past 256 entries) could be emptied on one rank alone."""
     default = min(1.0, 4.0 / n_g)
     n = scene.num_gaussians * (n_g if group is not None else 1)
-    key = (id(scene), n, n_g)
-    hit = _CAP_FACTOR_CACHE.get(key)
-    if hit is not None and hit[0]() is scene:
-        return hit[1]
+    memo = scene.__dict__.setdefault("_cap_factor_memo", {})
+    if (n, n_g) in memo:
+        return memo[(n, n_g)]
     score = (shard_spatial_score(scene, n_g) if group is None
              else _sharded_score(scene, n_g, group))
     out = default
     if score < _SPATIAL_SCORE_THRESHOLD:
         out = min(1.0, max(default, default / max(score, 1e-3)))
-    if len(_CAP_FACTOR_CACHE) > 256:
-        _CAP_FACTOR_CACHE.clear()
-    _CAP_FACTOR_CACHE[key] = (weakref.ref(scene), out)
+    memo[(n, n_g)] = out
     return out
 
 
@@ -586,15 +676,25 @@ def prepare_scene_for_sharding(scene, n_g: int, *, seed: int = 0,
     return scene, False
 
 
+def slab_cap(n_local: int, cap_factor: float) -> int:
+    """The slots each destination slab gets from a rank on the a2a route:
+    ``cap_factor * n_local`` rounded up to a multiple of 128, at least
+    128 and at most ``n_local``."""
+    return min(max(128, -(-int(n_local * cap_factor) // 128) * 128),
+               n_local)
+
+
 def _route_records_by_slab(proj: ProjectedGaussians, n_g: int,
-                           h_local: int, cap_factor: float | None, group):
+                           h_local: int, cap_factor: float | None, group,
+                           tile_h: int):
     """Compact this rank's records per destination slab and route them by
     one ``all_to_all_single``.  Returns (the n_g * cap received records,
     this rank's routing overflow).
 
-    Per destination, the records whose box meets its slab as
-    :func:`_slab_view` gates it (so both routes keep the same pairs;
-    ``splat_tpu`` gates here with the unquantized radius) are taken in
+    Per destination, the records whose box meets the slab's frame of
+    whole ``tile_h``-row tiles (:func:`_tile_frame`) as :func:`_slab_view`
+    gates it (so both routes keep the same pairs; ``splat_tpu`` gates
+    here with the unquantized radius, and its slab's own rows) are taken in
     front-to-back order (a stable sort by depth, as ``jnp.argsort``, so
     ties and with them the dropped records match ``splat_tpu``) into
     ``cap`` slots; those past the cap are counted.  Received block s comes
@@ -604,14 +704,14 @@ def _route_records_by_slab(proj: ProjectedGaussians, n_g: int,
     dev = proj.depth.device
     if cap_factor is None:
         cap_factor = min(1.0, 4.0 / n_g)
-    cap = max(128, -(-int(n_local * cap_factor) // 128) * 128)
-    cap = min(cap, n_local)
+    cap = slab_cap(n_local, cap_factor)
 
-    y0 = torch.arange(n_g, dtype=torch.float32, device=dev)[:, None] * h_local
+    top, rows = _tile_frame(
+        torch.arange(n_g, device=dev)[:, None] * h_local, h_local, tile_h)
     touches = proj.visible[None, :] & _meets_slab(
-        proj.center_px[None, :, 1] - y0,
+        proj.center_px[None, :, 1],
         _slab_reach(proj.radius_px, proj.visible)[None, :],
-        h_local)                                             # (n_g, N_local)
+        top.to(torch.float32), rows.to(torch.float32))       # (n_g, N_local)
     order = torch.argsort(torch.where(proj.visible, proj.depth,
                                       float("inf")), stable=True)
     rows = _pack(proj)[order]                                # (N_local, 13)

@@ -102,12 +102,13 @@ def _inputs():
 
 
 def _port_gate_radius(radius_px, visible):
-    """The half-height a record's slab gate adds a pixel of margin to:
-    the port routes with (ceil-quantized radius + 1), splat_tpu with the
-    radius itself, so splat_tpu given these radii routes as the port."""
+    """The half-height a record's slab gate reads: the port routes with
+    the ceil-quantized radius, splat_tpu with the radius itself, so
+    splat_tpu given these radii routes as the port (its box's top edge
+    must pass a slab's first row where the port's may end on it, which
+    no record here does)."""
     return sharding._slab_reach(torch.tensor(np.asarray(radius_px)),
-                                torch.tensor(np.asarray(visible))
-                                ).numpy() + np.float32(1.0)
+                                torch.tensor(np.asarray(visible))).numpy()
 
 
 def _jax_routing(proj):
@@ -341,8 +342,8 @@ def test_sharded_render_of_packed_scene(world):
 def test_a2a_equals_gather(world, mesh):
     """Both routes gate with _slab_view's gate, so they keep the same
     pairs and render the same image, bit for bit, though many of this
-    scene's splats reach a slab only through the quantized radius and
-    its pixel of margin (counted here at the edges of the 4 slabs)."""
+    scene's splats reach a slab only through the quantized radius
+    (counted here at the edges of the 4 slabs)."""
     inp, _, outs = world
     scene = _tscene(inp, "r")
     edge = 0
@@ -360,6 +361,13 @@ def test_a2a_equals_gather(world, mesh):
         for path in ("", "_batch"):
             np.testing.assert_array_equal(out[f"{mesh}_a2a{path}"],
                                           out[f"{mesh}_gather{path}"])
+
+
+def test_a2a_cap_memo_agrees_across_ranks(world):
+    """Rank 0 alone scores 300 other scenes between two a2a renders of one
+    shard: every rank still hits the shard's memo and skips the gather."""
+    _, _, outs = world
+    assert [int(out["cap_memo_equal"]) for out in outs] == [1] * WORLD
 
 
 @pytest.mark.parametrize("mesh", MESHES)

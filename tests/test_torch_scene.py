@@ -9,6 +9,7 @@ bit; the packed render is held against splat_tpu's packed render_tiled
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -66,6 +67,40 @@ def ref():
     img = np.asarray(jax_render_tiled(js.pack_device(), jc, jcfg,
                                       interpret=True))
     return d, img, render_oracle(js, jc, jcfg)
+
+
+# render_tiled's knobs pinned against splat_tpu's render_tiled: depth mode
+# with its per-frame range and with an explicit one, rectangular tiles
+_KNOBS = {
+    "depth_auto_range": dict(render_mode="depth"),
+    "depth_explicit_range": dict(render_mode="depth", depth_range=(2.5, 5.5)),
+    "tiles_32x16": dict(tile_px=32, tile_py=16),
+    "tiles_16x32": dict(tile_px=16, tile_py=32),
+}
+
+
+@pytest.fixture(scope="module")
+def knob_refs():
+    """splat_tpu's render_tiled of the module's scene under each knob
+    (Pallas in interpret mode, jitted: ~2 s each)."""
+    d = _numpy_scene()
+    js = st.GaussianScene(**d).pack_device()
+    jc = st.Camera.create(**CAM)
+    return d, {name: np.asarray(jax.jit(
+        lambda s, c, kw=kw: jax_render_tiled(
+            s, c, st.RenderConfig(chunk=64, **kw), interpret=True))(js, jc))
+        for name, kw in _KNOBS.items()}
+
+
+@pytest.mark.parametrize("knob", list(_KNOBS))
+def test_render_tiled_knobs_match_splat_tpu(knob_refs, knob):
+    """Within 2e-5 of splat_tpu's image (the two packages' exp and
+    division round apart: 121-123 dB here)."""
+    d, want = knob_refs
+    got = stt.render_tiled(_tscene(d), _tcam(),
+                           stt.RenderConfig(chunk=64, **_KNOBS[knob]))
+    assert got.shape == want[knob].shape
+    np.testing.assert_allclose(got.numpy(), want[knob], atol=2e-5, rtol=0)
 
 
 def test_pack_device_equals_splat_tpu():

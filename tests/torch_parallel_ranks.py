@@ -111,6 +111,20 @@ def renders(inp, out: dict, rank: int) -> None:
             lambda: sharding.render_sharded_tiled(
                 local, cam, mesh, stt.RenderConfig(render_mode="depth")),
             ValueError)
+    # the a2a cap is memoized on the shard object: rank 0 alone scoring
+    # 300 other scenes (past the 256 entries a table of the process would
+    # hold before emptying) must not make it miss alone and enter the
+    # score's gather that the others skip
+    mesh = sharding.make_mesh(1, 4, device="cpu")
+    local = sharding.shard_scene(scene, mesh)
+    first = sharding.render_sharded_tiled(local, cam, mesh, cfg,
+                                          route="a2a")[0]
+    if rank == 0:
+        for _ in range(300):
+            sharding._auto_cap_factor(scene.slice(0, 64), 4)
+    again = sharding.render_sharded_tiled(local, cam, mesh, cfg,
+                                          route="a2a")[0]
+    out["cap_memo_equal"] = int(torch.equal(first, again))
     out["mesh_3x3_raises"] = raises(lambda: sharding.make_mesh(3, 3,
                                                                device="cpu"),
                                     ValueError)
@@ -130,8 +144,10 @@ def routing(inp, out: dict, rank: int) -> None:
                    "opacity", "visible")}
     proj = ProjectedGaussians(**t)
     h_local = int(inp["p_h"]) // 4
+    # tiles of the slab's height: each destination's frame is its own
+    # rows, the gate splat_tpu routes with
     rec, ov = sharding._route_records_by_slab(
-        proj, 4, h_local, float(inp["p_cap_factor"]), group)
+        proj, 4, h_local, float(inp["p_cap_factor"]), group, h_local)
     out["route_rows"] = torch.cat([
         rec.center_px, rec.conic, rec.radius_px, rec.color,
         rec.opacity[:, None], rec.depth[:, None]], dim=1)
