@@ -22,9 +22,10 @@ Phases (any failure raises and exits non-zero):
      K4_MIN_COS; prints the longest tile walk and both kernels' times;
   4. the inference path with every launch counter at 0: ``render()`` of
      the committed fitted 20k-splat scene (>= 45 dB against the dense
-     renderer), then ``render()`` and a timed yaw sweep of 1M random and
-     1M surface gaussians @1920x1080 with overflow 0, each scene packed
-     by ``pack_device()`` as the repo's bench.py packs it;
+     renderer), then ``render()`` and a timed yaw sweep (``chained_bench``,
+     one captured CUDA graph) of 1M random and 1M surface gaussians
+     @1920x1080 with overflow 0, each scene packed by ``pack_device()``
+     as the repo's bench.py packs it;
   5. K1 and K2 must have launched during phase 4;
   6. the training path with every launch counter at 0: the fitted-20k
      recipe of scripts/make_fitted_scene.py (surface_scene(20_000), 4
@@ -112,6 +113,33 @@ Phases (any failure raises and exits non-zero):
      ``render_sharded_tiled`` of the packed scene's shard, by both
      routes, equal bit for bit to the unpacked shard's.
      Prints a ``{"packed": ...}`` JSON line.
+  12. the compiled frame (``render/graph.py``: a frame captured once into
+     a CUDA graph and replayed, the port's ``jax.jit``) at the 1M random
+     and surface frames @1920x1080, packed: ``render_fn``'s first call
+     (capture ms, its pool's MiB) beside one eager frame; its replays
+     equal to eager ``render_tiled`` bit for bit at the captured pose, at
+     a new pose (that replay traced by ``torch.profiler``: one K1 and one
+     K2 kernel on the card, as many as the counters add from 0), after an
+     in-place edit of the packed buffer and after its undo, with one
+     capture in all; ``stt.render`` of a ``GaussianScene`` edited in
+     place between 3 frames and of one of inference tensors, each one
+     capture, equal to eager, reserved memory flat after the first frame;
+     ``chained_bench``'s 30-frame sweep as one captured program against
+     eager dispatch, in turns (eager, compiled, compiled, eager), the
+     same mean pixel bit for bit, and 10-frame sweeps of each under
+     ``torch.profiler`` (device-busy ms, idle share); one replay of a
+     10-frame sweep program traced: ten K1 and ten K2 kernels on the
+     card, as many as the counters add; the CLI ``orbit`` of the 1M
+     random PLY (one capture, a
+     replay a frame, K1/K2 launched frames + 1 times); the viewer's
+     ``render_pose`` equal to eager bit for bit and the median pose ->
+     bytes of raw requests through its graph (surface).  Prints a
+     ``{"compiled": ...}`` JSON line.
+  Every inference entry point above (``render``, ``render_fn``,
+  ``chained_bench``, the CLI and the viewer) replays captured graphs: a
+  capture's eager warm-up launches K1 and K2 once more for each frame it
+  captures, which phases 10 and 11 count; the cache of graphs is emptied
+  after each phase that fills it.
 The second-to-last line is a JSON object describing each kernel, with its
 bound (the least time the card could take for its work on these inputs:
 bytes over the memory rate, FP32 operations over the FP32 rate, or
@@ -152,6 +180,7 @@ K4_MIN_COS = 0.99999
 FIT_STEPS = 30
 BIG_FIT_STEPS = 3
 ORBIT_FRAMES = 10          # phase 8: the CLI orbit of the 1M surface PLY
+COMPILED_ORBIT_FRAMES = 5  # phase 12: the CLI orbit of the 1M random PLY
 VIEWER_REQUESTS = 10       # phase 8: timed raw requests at 1080p
 # phase 9: a slab-split render against one render_tiled, the limits
 # tests/test_sharding.py holds splat_tpu's to (its slabs cut the image's
@@ -696,7 +725,7 @@ def cli_and_viewer(device, kernels) -> dict:
     from splat_tpu_torch import cli
     from splat_tpu_torch.io.cache import load_scene_cached
     from splat_tpu_torch.native.loader import load_ply_native
-    from splat_tpu_torch.render.tiled import render_tiled
+    from splat_tpu_torch.render.api import frame_fn
     from splat_tpu_torch.utils.image import read_png, write_png
     from splat_tpu_torch.viewer.server import make_server
 
@@ -852,15 +881,16 @@ def cli_and_viewer(device, kernels) -> dict:
         inference = {"K1": expand.launches, "K2": raster.launches,
                      "K3": fwd.launches, "K4": bwd.launches}
         # the same poses without the server: what a request spends in the
-        # render, the overflow read and the copy to the host (not counted)
+        # render (the viewer's compiled frame), the overflow read and the
+        # copy to the host (not counted)
+        frame = frame_fn("tiled", cfg, return_stats=True)
         frame_ms = []
         for i in range(VIEWER_REQUESTS):
             c = cam.with_pose(yaw=0.02 * i)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             with torch.inference_mode():
-                img, st = render_tiled(scene.pack_device(), c, cfg,
-                                       return_stats=True)
+                img, st = frame(scene.pack_device(), c)
                 int(st["overflow"])
                 (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(
                     torch.uint8).cpu().numpy()
@@ -1483,7 +1513,7 @@ def knob_path(device, kernels) -> tuple[dict, dict, dict]:
     import splat_tpu_torch as stt
     from splat_tpu_torch.ops.projection import project_gaussians
     from splat_tpu_torch.parallel import sharding
-    from splat_tpu_torch.render import binning
+    from splat_tpu_torch.render import binning, graph
     from splat_tpu_torch.render.expand import expand_pair_keys_plain
     from splat_tpu_torch.render.kernels import (rasterize_tiles,
                                                 rasterize_tiles_plain)
@@ -1623,17 +1653,20 @@ def knob_path(device, kernels) -> tuple[dict, dict, dict]:
             fig["binning_host_ms"][name].append(host_ms(c))
 
         # ---- the entry points with each knob, each counted from 0: every
-        # render must launch K1 and K2 once, each with its knob's variant
-        def counted(what, fn, cull, subtile, renders=1):
+        # render must launch K1 and K2 once, each with its knob's variant,
+        # and a capture's warm-up once more for each frame it captured
+        def counted(what, fn, cull, subtile, renders=1, captured_frames=1):
             for f in kernels:
                 f.launches = 0
             expand.cull_launches = raster.subtile_launches = 0
+            caps = graph.counts["captures"]
             out = fn()
+            n = renders + (graph.counts["captures"] - caps) * captured_frames
             got = {"K1": expand.launches, "K1_cull": expand.cull_launches,
                    "K2": raster.launches, "K2_subtile": raster.subtile_launches,
                    "K3": kernels[2].launches, "K4": kernels[3].launches}
-            want = {"K1": renders, "K1_cull": renders * cull, "K2": renders,
-                    "K2_subtile": renders * subtile, "K3": 0, "K4": 0}
+            want = {"K1": n, "K1_cull": n * cull, "K2": n,
+                    "K2_subtile": n * subtile, "K3": 0, "K4": 0}
             require(got == want, f"{kind} {what}: launches {got}, not {want}")
             launches[what] = got
             return out
@@ -1676,7 +1709,8 @@ def knob_path(device, kernels) -> tuple[dict, dict, dict]:
         for im in (img_c, img_b):
             require(im.shape == (H, W, 3) and bool(torch.isfinite(im).all()),
                     f"{kind}: knob render: bad shape or non-finite values")
-        # chained_bench renders 2 * frames + 1 times
+        # chained_bench renders one eager frame, then captures its sweep
+        # and its audit (each warm-up renders every frame) and replays each
         confs = (("off", cfg, 0, 0), ("subtile_exit", cfg_s, 0, 1),
                  ("cull_pairs", cfg_c, 1, 0))
         sweeps: dict = {name: [] for name, *_ in confs}
@@ -1684,7 +1718,7 @@ def knob_path(device, kernels) -> tuple[dict, dict, dict]:
             # in turns, there and back
             r = counted(f"sweep {name} {i}", lambda c=c: chained_bench(
                 scene, cam, c, SWEEP_FRAMES), cull, sub,
-                renders=2 * SWEEP_FRAMES + 1)
+                renders=2 * SWEEP_FRAMES + 1, captured_frames=SWEEP_FRAMES)
             require(r["overflow"] == 0, f"{kind} {name}: overflow")
             sweeps[name].append(r["ms_per_frame"])
         fig["ms_per_frame"] = sweeps
@@ -1741,6 +1775,32 @@ def profile_calls(fn, reps: int, top: int = 6) -> dict:
             "top_ms": {k: v / 1e3 / reps for k, v in ranked}}
 
 
+# the card's names of K1's and K2's kernels (K2's variants among them)
+TRACED_KERNELS = {"K1": "expand_pairs_kernel", "K2": "raster_kernel"}
+
+
+def traced_launches(run) -> dict:
+    """K1's and K2's launches that ``torch.profiler`` saw the card run
+    during ``run()``: its kernels counted by name, not by the wrappers'
+    counters."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    got = dict.fromkeys(TRACED_KERNELS, 0)
+    for evt in prof.key_averages():
+        if evt.device_type == DeviceType.CUDA:
+            for key, name in TRACED_KERNELS.items():
+                if name in evt.key:
+                    got[key] += evt.count
+    return got
+
+
 def packed_path(device, kernels, sharded_equal: dict) -> dict:
     """Phase 11: the feature-major scene at the 1M random and surface
     frames @1920x1080.  ``sharded_equal`` is phase 9's comparison of the
@@ -1749,6 +1809,7 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
     import torch
     import splat_tpu_torch as stt
     from splat_tpu_torch.ops.projection import project_gaussians
+    from splat_tpu_torch.render import graph
     from splat_tpu_torch.scene import PACKED_ROWS, DeviceScene
     from splat_tpu_torch.utils.benchmark import chained_bench
 
@@ -1824,14 +1885,18 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
         try:
             for fn in kernels:
                 fn.launches = 0
+            caps = graph.counts["captures"]
             imgs = [stt.render(fresh, v, cfg) for v in views]
             torch.cuda.synchronize()
-            got = {"K1": expand.launches, "K2": raster.launches}
+            got = {"K1": expand.launches, "K2": raster.launches,
+                   "captures": graph.counts["captures"] - caps}
         finally:
             DeviceScene.from_buffer = real
         require(len(packs) == 1, f"{kind}: render() packed {len(packs)} "
                                  f"times over 3 frames")
-        require(got == {"K1": 3, "K2": 3},
+        # one capture of the packed frame, its warm-up launching once, and
+        # a replay a frame
+        require(got == {"K1": 4, "K2": 4, "captures": 1},
                 f"{kind}: render() of 3 frames launched {got}")
         for k in launches:
             launches[k] += got[k]
@@ -1870,6 +1935,259 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
     return {"figures": figures, "launches": launches}
 
 
+def compiled_path(device, kernels) -> dict:
+    """Phase 12: the compiled frame (``render/graph.py``, the port's
+    ``jax.jit``) at the 1M random and surface frames @1920x1080.  Returns
+    the phase's figures and the K1/K2 launches of one replay, as the
+    profiler traced them on the card."""
+    import statistics
+    import tempfile
+    import torch
+    import splat_tpu_torch as stt
+    from splat_tpu_torch.render import graph
+    from splat_tpu_torch.render.tiled import render_tiled
+    from splat_tpu_torch.utils.benchmark import (_sweep_fns, chained_bench,
+                                                 profile_frames)
+
+    expand, raster = kernels[:2]
+    cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
+    figures: dict = {}
+    per_replay = {}
+    mib = 2.0 ** 20
+    build = os.path.join(ROOT, "build")
+    os.makedirs(build, exist_ok=True)
+    for kind in ("random", "surface"):
+        scene, dup = bench_scene(kind, N_BIG, device)
+        cfg = stt.RenderConfig(max_dup_factor=dup)
+        packed = scene.pack_device()
+        fig: dict = {}
+
+        # ---- the CLI orbit, its frames replayed (random: phase 8 runs
+        # the surface PLY's)
+        if kind == "random":
+            with tempfile.TemporaryDirectory(dir=build) as tmp:
+                ply = os.path.join(tmp, "random_1m.ply")
+                stt.save_ply(ply, scene)
+                caps, reps = graph.counts["captures"], graph.counts["replays"]
+                for fn in kernels:
+                    fn.launches = 0
+                out, err = run_cli(["orbit", ply, "--size", f"{W}x{H}",
+                                    "--pos", "0,0,4", "--frames",
+                                    str(COMPILED_ORBIT_FRAMES),
+                                    "--yaw-sweep", "10", "--png-level", "0",
+                                    "--dup-factor", str(dup), "--out-dir",
+                                    os.path.join(tmp, "orbit"),
+                                    "--device", "cuda"])
+                got = {"captures": graph.counts["captures"] - caps,
+                       "replays": graph.counts["replays"] - reps,
+                       "K1": expand.launches, "K2": raster.launches}
+                # one capture (its warm-up launches once) and a replay a
+                # frame
+                n = COMPILED_ORBIT_FRAMES
+                require(got == {"captures": 1, "replays": n, "K1": n + 1,
+                                "K2": n + 1} and "WARNING" not in err,
+                        f"orbit through the graph: {got} {err}")
+                fig["cli_orbit"] = dict(got, ms_per_frame=float(
+                    out.split(" ms/frame")[0].split()[-1]))
+
+        # ---- the first call: capture and one replay; the pool it took.
+        # Beside it one eager frame (the kernels' library built)
+        graph.clear()
+        render_tiled(packed, cam, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_tiled(packed, cam, cfg)
+        torch.cuda.synchronize()
+        fig["eager_frame_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(device)
+        f = stt.render_fn("tiled", cfg)
+        caps = graph.counts["captures"]
+        t0 = time.perf_counter()
+        img0 = f(packed, cam)
+        torch.cuda.synchronize()
+        fig["first_call_ms"] = (time.perf_counter() - t0) * 1e3
+        entry = graph.captured(("tiled", cfg, False), packed, cam)
+        require(entry is not None and graph.counts["captures"] == caps + 1,
+                f"{kind}: render_fn captured no graph")
+        fig["capture_ms"] = entry.capture_s * 1e3
+        fig["pool_mib"] = entry.pool_bytes / mib
+        fig["reserved_mib_after_first_call"] = (
+            torch.cuda.memory_reserved(device) - reserved0) / mib
+
+        # ---- replay against eager, bit for bit: the captured pose, a new
+        # pose (its replay traced on the card and counted from 0), an
+        # in-place edit and its undo
+        eq = {"pose_0": torch.equal(img0, render_tiled(packed, cam, cfg))}
+        c1 = cam.with_pose(yaw=0.3)
+        want1 = render_tiled(packed, c1, cfg)
+        for fn in kernels:
+            fn.launches = 0
+        reps = graph.counts["replays"]
+        out = []
+        traced = traced_launches(lambda: out.append(f(packed, c1)))
+        img1, = out
+        counted = {"K1": expand.launches, "K2": raster.launches}
+        per_replay[kind] = dict(traced, replays=graph.counts["replays"]
+                                - reps, counted=counted)
+        require(traced == counted == {"K1": 1, "K2": 1}
+                and per_replay[kind]["replays"] == 1,
+                f"{kind}: a replay launched {per_replay[kind]}")
+        eq["pose_1"] = torch.equal(img1, want1)
+        row = packed.buffer[10].clone()               # the opacities
+        packed.buffer[10].mul_(0.5)
+        img_e = f(packed, c1)
+        eq["in_place_edit"] = (torch.equal(img_e, render_tiled(packed, c1,
+                                                                cfg))
+                               and not torch.equal(img_e, img1))
+        packed.buffer[10].copy_(row)
+        eq["edit_undone"] = torch.equal(f(packed, c1), img1)
+        require(all(eq.values()), f"{kind}: replay vs eager {eq}")
+        require(graph.counts["captures"] == caps + 1,
+                f"{kind}: a pose or an edit captured again")
+        fig["bit_equal"] = eq
+        del img0, img1, img_e, want1, row, out
+
+        # ---- render() of a GaussianScene edited in place between frames,
+        # and of a scene of inference tensors (re-packed every call): the
+        # pack is refilled where it lies, so one capture serves every
+        # frame and reserved memory stops growing
+        fields = ("means", "quats", "scales", "opacities", "sh")
+        for name in ("edited", "inference"):
+            with torch.inference_mode(name == "inference"):
+                s = stt.GaussianScene(**{k: getattr(scene, k).clone()
+                                         for k in fields})
+            caps_r = graph.counts["captures"]
+            reserved, same = [], []
+            for _ in range(3):
+                with torch.inference_mode(name == "inference"), \
+                        torch.no_grad():
+                    s.opacities.mul_(0.95)
+                img = stt.render(s, cam, cfg, method="tiled")
+                same.append(torch.equal(img, render_tiled(
+                    s.pack_device(), cam, cfg)))
+                torch.cuda.synchronize()
+                reserved.append(torch.cuda.memory_reserved(device) / mib)
+            got = {"captures": graph.counts["captures"] - caps_r,
+                   "equal": all(same), "reserved_mib": reserved}
+            require(got["captures"] == 1 and got["equal"]
+                    and reserved[-1] == reserved[1],
+                    f"{kind}: render() of an {name} scene: {got}")
+            fig[f"render_{name}_scene"] = got
+            del s, img
+        del scene
+
+        # ---- the sweep as one captured program against eager dispatch,
+        # in turns; the same frames, so the same mean pixel bit for bit
+        runs = {"eager": [], "compiled": []}
+        for name in ("eager", "compiled", "compiled", "eager"):
+            r = chained_bench(packed, cam, cfg, SWEEP_FRAMES,
+                              compiled=name == "compiled")
+            require(r["overflow"] == 0, f"{kind} {name} sweep: overflow")
+            runs[name].append(r)
+        means = {r["mean_pixel"] for rs in runs.values() for r in rs}
+        require(len(means) == 1, f"{kind}: sweeps differ: {means}")
+        fig["ms_per_frame"] = {k: [r["ms_per_frame"] for r in rs]
+                               for k, rs in runs.items()}
+        fig["sweep_compile_s"] = [r["compile_s"] for r in runs["compiled"]]
+
+        # ---- device busy and idle share, profiled: 10-frame sweeps
+        for name in ("eager", "compiled"):
+            prof = profile_frames(packed, cam, cfg, frames=10, top=4,
+                                  compiled=name == "compiled")
+            median = statistics.median(fig["ms_per_frame"][name])
+            fig[f"{name}_profile"] = dict(
+                prof, idle_share_of_median_sweep=1.0
+                - prof["device_busy_ms"] / median)
+        # one replay of a 10-frame sweep program, traced: ten K1 and ten
+        # K2 launches on the card, as many as the counters add
+        sweep = graph.capture(_sweep_fns(cfg, 10)[0], packed, cam)
+        for fn in kernels:
+            fn.launches = 0
+        traced = traced_launches(lambda: sweep(packed, cam))
+        counted = {"K1": expand.launches, "K2": raster.launches}
+        require(traced == counted == {"K1": 10, "K2": 10},
+                f"{kind}: a 10-frame sweep replay traced {traced}, counted "
+                f"{counted}")
+        fig["sweep_replay_launches"] = traced
+        del sweep
+        fig["reserved_mib"] = torch.cuda.memory_reserved(device) / mib
+        fig["graphs_cached"] = len(graph._CACHE)
+
+        # ---- the viewer's pose -> bytes through its graph (surface)
+        if kind == "surface":
+            fig["viewer"] = compiled_viewer(packed, cam, cfg)
+        figures[kind] = fig
+        ep, cp = fig["eager_profile"], fig["compiled_profile"]
+        print(f"[compiled] {kind} {N_BIG} @{W}x{H}: capture "
+              f"{fig['capture_ms']:.1f} ms, pool {fig['pool_mib']:.1f} MiB, "
+              f"first call {fig['first_call_ms']:.1f} ms (one eager frame "
+              f"{fig['eager_frame_ms']:.2f} ms); replay == eager "
+              f"bit for bit {eq}; ms/frame eager {fig['ms_per_frame']['eager']}"
+              f", compiled {fig['ms_per_frame']['compiled']}; device busy "
+              f"{ep['device_busy_ms']:.4f} / {cp['device_busy_ms']:.4f} ms, "
+              f"idle share {ep['idle_share_of_median_sweep']:.3f} / "
+              f"{cp['idle_share_of_median_sweep']:.3f} (eager / compiled); "
+              f"launches a replay {per_replay[kind]}; render() of a "
+              f"changing scene {fig['render_edited_scene']} / "
+              f"{fig['render_inference_scene']}")
+        del packed, f, entry
+        graph.clear()
+    print(json.dumps({"compiled": figures}))
+    return {"figures": figures, "per_replay": per_replay}
+
+
+def compiled_viewer(packed, cam, cfg) -> dict:
+    """Phase 12's viewer: ``render_pose`` through its graph equal bit for
+    bit to eager, then the median pose -> bytes of raw requests and of
+    ``render_pose`` alone, each replaying the graph."""
+    import statistics
+    import threading
+    import urllib.request
+    import numpy as np
+    import torch
+    from splat_tpu_torch.render import graph
+    from splat_tpu_torch.render.tiled import render_tiled
+    from splat_tpu_torch.viewer.server import make_server
+
+    srv = make_server(packed, cam, cfg, port=0)
+    caps, reps = graph.counts["captures"], graph.counts["replays"]
+    frame, overflow = srv.render_pose(0.1, 0.0, 1.0, "color", 1.0)
+    want = render_tiled(packed, cam.with_pose(yaw=0.1), cfg)
+    want = (torch.clamp(want, 0, 1) * 255 + 0.5).to(torch.uint8)
+    require(overflow == 0 and np.array_equal(frame, want.cpu().numpy()),
+            "viewer render_pose through its graph differs from eager")
+    alone = []
+    for i in range(VIEWER_REQUESTS):
+        t0 = time.perf_counter()
+        srv.render_pose(0.02 * i, 0.0, 1.0, "color", 1.0)
+        alone.append((time.perf_counter() - t0) * 1e3)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}/frame.raw?yaw="
+    times = []
+    try:
+        for i in range(VIEWER_REQUESTS):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(url + str(0.02 * i),
+                                        timeout=300) as r:
+                body, hdr = r.read(), dict(r.headers)
+            times.append((time.perf_counter() - t0) * 1e3)
+            require(hdr["X-Splat-Overflow"] == "0"
+                    and len(body) == cam.w * cam.h * 4, "viewer: raw frame")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=60)
+    require(not th.is_alive(), "viewer thread did not stop")
+    got = {"captures": graph.counts["captures"] - caps,
+           "replays": graph.counts["replays"] - reps}
+    require(got == {"captures": 1, "replays": 1 + 2 * VIEWER_REQUESTS},
+            f"viewer: {got}, not one capture and a replay a frame")
+    return dict(got, pose_to_bytes_median_ms=statistics.median(times),
+                render_pose_median_ms=statistics.median(alone))
+
+
 def main(argv) -> int:
     import argparse
     import torch
@@ -1887,6 +2205,7 @@ def main(argv) -> int:
     from splat_tpu_torch.ops.projection import project_gaussians
     from splat_tpu_torch.render.diff import (rasterize_train_bwd,
                                              rasterize_train_fwd)
+    from splat_tpu_torch.render import graph
     from splat_tpu_torch.render.expand import expand_pair_keys
     from splat_tpu_torch.render.kernels import rasterize_tiles
 
@@ -1944,10 +2263,17 @@ def main(argv) -> int:
         for fn in kernels:
             fn.launches = 0
 
+    def release_graphs():
+        # the cached graphs hold their scenes and pools: none outlives its
+        # phase
+        graph.clear()
+        torch.cuda.empty_cache()
+
     zero_counts()
     main_path(device)
     k1["launches"] = expand_pair_keys.launches
     k2["launches"] = rasterize_tiles.launches
+    release_graphs()
     zero_counts()
     training_path(device)
     k3["launches"] = rasterize_train_fwd.launches
@@ -1959,6 +2285,7 @@ def main(argv) -> int:
         require(k["launches"] > 0, f"{k['name']} never launched on its "
                                    f"path")
     cli_counts = cli_and_viewer(device, kernels)
+    release_graphs()
     for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
         k["cli_launches"] = cli_counts["fit" if key in ("K3", "K4")
                                        else "inference"][key]
@@ -1966,9 +2293,14 @@ def main(argv) -> int:
     for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
         k["parallel_launches"] = par["launch_totals"][key]
     k1c, k2s, _ = knob_path(device, kernels)
+    release_graphs()
     packed = packed_path(device, kernels, par["packed_equal"])
+    release_graphs()
     k1["packed_launches"] = packed["launches"]["K1"]
     k2["packed_launches"] = packed["launches"]["K2"]
+    comp = compiled_path(device, kernels)
+    k1["launches_per_replay"] = comp["per_replay"]["random"]["K1"]
+    k2["launches_per_replay"] = comp["per_replay"]["random"]["K2"]
     print(json.dumps({"kernels": [k1, k2, k3, k4, k1c, k2s]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ pair expansion, ``csrc/raster.cu``: per-tile compositing,
 ``nvcc`` on first use.  The inference frame reads the feature-major
 ``DeviceScene`` (``scene.pack_device()``; ``render()`` packs a
 ``GaussianScene`` once and keeps the pack), training the
-``GaussianScene``.  Constructors put tensors on ``cuda:0`` unless given
+``GaussianScene``.  On the card ``render``/``render_fn`` replay the frame
+captured once into a CUDA graph (``render/graph.py``, the counterpart of
+``splat_tpu``'s ``jax.jit``).  Constructors put tensors on ``cuda:0`` unless given
 ``device=``.  CPU tensors take each kernel's plain PyTorch version,
 which the tests hold against the JAX package.  This package never
 imports JAX.
@@ -22,7 +24,8 @@ Public API::
     camera = stt.Camera.create(h=1080, w=1920, position=(0., 0., 5.))
     img    = stt.render(scene, camera)              # float32 (H, W, 3)
     packed = scene.pack_device()                    # stt.DeviceScene
-    img    = stt.render_tiled(packed, camera)       # a frame loop's input
+    frame  = stt.render_fn("tiled")                 # the compiled frame
+    img    = frame(packed, camera)                  # a frame loop's call
     res    = stt.fit(scene, stt.orbit_trajectory(camera, 4, 0.8), targets,
                      method="tiled")                # targets (4, H, W, 3)
 

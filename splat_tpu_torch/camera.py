@@ -11,7 +11,9 @@ protocol the projection reads: ``view_matrix()``, ``intrinsics_px()``,
 ``sh_eye()``, ``znear``, ``h``, ``w``.
 
 Pose fields are float32 tensors on the camera's device; ``h``/``w`` are
-ints.  Every matrix is built on that device.
+ints.  Every matrix is built on that device, and what a frame reads
+(``view_matrix``, ``intrinsics_px``, ``sh_eye``) copies nothing from the
+host, so a frame can be captured into a CUDA graph (``render/graph.py``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import math
 
 import torch
 
-from splat_tpu_torch.device import resolve_device
+from splat_tpu_torch.device import filled, resolve_device
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -133,8 +135,9 @@ class Camera:
         """Pinhole intrinsics (fx, fy, cx, cy) in pixels: square pixels,
         centered principal point."""
         _, _, focal = self.htanfovxy_focal()
-        return (focal, focal, _f32(self.w / 2, self.device),
-                _f32(self.h / 2, self.device))
+        cx, cy = (torch.full((), v, dtype=torch.float32, device=self.device)
+                  for v in (self.w / 2, self.h / 2))
+        return focal, focal, cx, cy
 
     def scaled(self, ss: int) -> "Camera":
         """Resolution scaled by ``ss`` with the field of view unchanged."""
@@ -323,8 +326,7 @@ def look_at(eye, center, up) -> torch.Tensor:
     f = _normalize(center - eye)
     s = _normalize(torch.linalg.cross(f, up))
     u = torch.linalg.cross(s, f)
-    last = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32,
-                        device=eye.device)
+    last = filled((0.0, 0.0, 0.0, 1.0), eye.device)
     return torch.stack([
         torch.cat([s, -torch.dot(s, eye)[None]]),
         torch.cat([u, -torch.dot(u, eye)[None]]),

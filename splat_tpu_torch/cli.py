@@ -316,8 +316,7 @@ def cmd_orbit(args) -> int:
     import torch
 
     from splat_tpu_torch.camera import orbit_trajectory
-    from splat_tpu_torch.render.api import render_fn, resolve_method
-    from splat_tpu_torch.render.tiled import render_tiled
+    from splat_tpu_torch.render.api import frame_fn, resolve_method
     from splat_tpu_torch.utils.image import write_png
 
     dev = _device(args)
@@ -335,8 +334,11 @@ def cmd_orbit(args) -> int:
     os.makedirs(args.out_dir, exist_ok=True)
     config = _config(args, scene, cam)
     scene = scene.pack_device()   # the feature-major layout, packed once
-    tiled = resolve_method(args.method, scene) == "tiled"
-    f = render_fn(args.method, config)
+    method = resolve_method(args.method, scene)
+    tiled = method == "tiled"
+    # the compiled frame (on the card a captured graph replayed a frame),
+    # with its stats on the tiled path
+    f = frame_fn(method, config, return_stats=tiled)
     # each frame's overflow stays on the device; one read after the loop,
     # so a truncated frame is reported and no frame waits for it
     overflows = []
@@ -345,8 +347,7 @@ def cmd_orbit(args) -> int:
     with torch.inference_mode():
         for i, c in enumerate(cams):
             if tiled:
-                img, stats = render_tiled(scene, c, config,
-                                          return_stats=True)
+                img, stats = f(scene, c)
                 overflows.append(stats["overflow"])
             else:
                 img = f(scene, c)
@@ -440,7 +441,8 @@ def cmd_bench(args) -> int:
     cam = _camera(args, dev)
     config = _config(args, scene, cam)
     r = chained_bench(scene.pack_device(), cam, config, args.frames)
-    print(f"compile: {r['warmup_s']:.1f}s")
+    print(f"compile: {r['compile_s']:.1f}s (capture of the sweep; first "
+          f"frame {r['warmup_s']:.1f}s)")
     print(f"{args.frames} frames (device-chained, yaw sweep): "
           f"{r['ms_per_frame']:.2f} ms/frame ({r['fps']:.1f} FPS)")
     per = r["num_pairs"] / max(scene.num_gaussians, 1)

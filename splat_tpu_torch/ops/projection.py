@@ -10,6 +10,7 @@ version is plain XLA.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -79,15 +80,11 @@ def encode_depth_color(depth, visible, config: RenderConfig):
     """Normalized view depth in [0, 1] for ``render_mode="depth"``:
     ``config.depth_range`` or this frame's visible min/max."""
     if config.depth_range is not None:
-        lo = torch.tensor(config.depth_range[0], dtype=torch.float32,
-                          device=depth.device)
-        hi = torch.tensor(config.depth_range[1], dtype=torch.float32,
-                          device=depth.device)
+        lo, hi = (torch.full((), v, dtype=torch.float32, device=depth.device)
+                  for v in config.depth_range)
     else:
-        inf = torch.tensor(float("inf"), dtype=torch.float32,
-                           device=depth.device)
-        lo = torch.min(torch.where(visible, depth, inf))
-        hi = torch.max(torch.where(visible, depth, -inf))
+        lo = torch.min(torch.where(visible, depth, math.inf))
+        hi = torch.max(torch.where(visible, depth, -math.inf))
         # empty frame / single depth plane: keep the division finite
         ok = torch.isfinite(lo) & (hi > lo)
         lo = torch.where(ok, lo, torch.zeros_like(lo))

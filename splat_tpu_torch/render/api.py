@@ -1,12 +1,17 @@
 """Public render API: ``render(scene, camera, config) -> image``.
 
-Port of ``splat_tpu/render/api.py``.  PyTorch runs eagerly, so
-``render_fn`` returns a plain function where JAX returned a jitted one.
+Port of ``splat_tpu/render/api.py``.  As there, one compiled function from
+camera pose to image; only the pose is a per-frame input.  On the card
+``render_fn`` and ``render()`` replay a frame captured into a CUDA graph
+(``render/graph.py``, the port's ``jax.jit``): one capture per method,
+config, scene, resolution and camera kind.  On CPU tensors they run the
+eager frame.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import weakref
 
@@ -15,9 +20,10 @@ import torch
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.ops.projection import project_gaussians
 from splat_tpu_torch.render.binning import count_pairs
+from splat_tpu_torch.render import graph
 from splat_tpu_torch.render.dense import render_dense
-from splat_tpu_torch.render.tiled import (CapacityOverflow, render_tiled,
-                                         render_tiled_checked)
+from splat_tpu_torch.render.tiled import (CapacityOverflow, raise_on_overflow,
+                                         render_tiled)
 from splat_tpu_torch.scene import GaussianScene
 
 
@@ -28,21 +34,45 @@ def resolve_method(method: str, scene) -> str:
     return method
 
 
+def frame_fn(method: str, config: RenderConfig, *,
+             return_stats: bool = False):
+    """The compiled frame ``f(scene, camera)`` of ``render_tiled``
+    (``return_stats`` as there) or ``render_dense`` at ``config``: on the
+    card a replay of its captured graph, on CPU tensors the eager call."""
+    if method == "tiled":
+        fn = functools.partial(render_tiled, config=config,
+                               return_stats=return_stats)
+    elif method == "dense" and not return_stats:
+        fn = functools.partial(render_dense, config=config)
+    else:
+        raise ValueError(f"no compiled frame for method {method!r}"
+                         + (" with stats" if return_stats else ""))
+    return graph.compiled(fn, (method, config, return_stats))
+
+
 def render_fn(method: str = "auto", config: RenderConfig | None = None):
-    """Return ``f(scene, camera) -> float32 (H, W, 3)`` ((H, W, 4) with
-    config.alpha_channel) for a ``GaussianScene`` or a ``DeviceScene``,
-    which ``f`` renders as given.  method: 'dense', 'tiled' or 'auto'."""
+    """Return the compiled ``f(scene, camera) -> float32 (H, W, 3)``
+    ((H, W, 4) with config.alpha_channel) for a ``GaussianScene`` or a
+    ``DeviceScene``, which ``f`` renders as given: on the card it replays
+    a captured frame (:func:`frame_fn`).  method: 'dense', 'tiled' or
+    'auto'."""
     config = config or RenderConfig()
 
     def f(scene, camera):
         m = resolve_method(method, scene)
-        if m == "dense":
-            return render_dense(scene, camera, config)
-        if m == "tiled":
-            return render_tiled(scene, camera, config)
-        raise ValueError(f"unknown render method {method!r}")
+        if m not in ("dense", "tiled"):
+            raise ValueError(f"unknown render method {method!r}")
+        return frame_fn(m, config)(scene, camera)
 
     return f
+
+
+def _render_checked(scene, camera, config: RenderConfig):
+    """The compiled tiled frame; its overflow is read once after the
+    frame (one host sync) and raises."""
+    img, stats = frame_fn("tiled", config, return_stats=True)(scene, camera)
+    raise_on_overflow(stats)
+    return img
 
 
 def pair_stats(scene, camera, config: RenderConfig | None = None) -> dict:
@@ -104,8 +134,10 @@ def render(scene, camera, config: RenderConfig | None = None,
     With no config, the tiled path sizes its pair capacity from the
     measured load (cached per scene, resolution and config); a pose that
     outgrows the cached capacity overflows, is re-measured and retried
-    once.  With check_overflow, overflow raises: never a silent
-    truncation.
+    once, and the new capacity is a new compiled frame.  With
+    check_overflow, overflow raises: never a silent truncation.  On the
+    card every frame is a replay of a captured graph (:func:`frame_fn`);
+    the measuring (``auto_config``) runs eagerly, once a cache miss.
     """
     auto_capacity = config is None
     config = config or RenderConfig()
@@ -131,7 +163,7 @@ def render(scene, camera, config: RenderConfig | None = None,
         config = cfg
     if m == "tiled" and check_overflow:
         try:
-            img = render_tiled_checked(scene, camera, config)
+            img = _render_checked(scene, camera, config)
         except CapacityOverflow:
             if cache_key is None:
                 raise
@@ -139,7 +171,7 @@ def render(scene, camera, config: RenderConfig | None = None,
             _AUTO_CONFIG_CACHE.pop(cache_key, None)
             config = auto_config(scene, camera, RenderConfig())
             _remember(cache_key, scene, config)
-            img = render_tiled_checked(scene, camera, config)
+            img = _render_checked(scene, camera, config)
     else:
         img = render_fn(m, config)(scene, camera)
     if as_uint8:

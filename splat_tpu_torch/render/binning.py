@@ -99,9 +99,10 @@ def decode_radius_bits(bits):
     field decodes to +inf."""
     rxq = bits & 0x7FFF
     ryq = (bits >> 15) & 0x7FFF
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=bits.device)
-    rx = torch.where(rxq == _R15_MAX, inf, rxq.to(torch.float32) * 0.125)
-    ry = torch.where(ryq == _R15_MAX, inf, ryq.to(torch.float32) * 0.125)
+    rx = torch.where(rxq == _R15_MAX, math.inf,
+                     rxq.to(torch.float32) * 0.125)
+    ry = torch.where(ryq == _R15_MAX, math.inf,
+                     ryq.to(torch.float32) * 0.125)
     vis = ((bits >> 30) & 1).to(torch.bool)
     return rx, ry, vis
 

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from splat_tpu_torch.config import RenderConfig
+from splat_tpu_torch.device import filled
 from splat_tpu_torch.ops.projection import project_gaussians
 from splat_tpu_torch.utils.image import box_downsample
 
@@ -84,7 +85,7 @@ def render_dense(scene, camera, config: RenderConfig | None = None,
     h, w = camera.h, camera.w
     dev = scene.device
     camera = camera.to(dev)
-    bg = torch.tensor(config.background, dtype=torch.float32, device=dev)
+    bg = filled(config.background, dev)
     if scene.num_gaussians == 0:
         bgc = (torch.cat([bg, torch.zeros(1, device=dev)])
                if config.alpha_channel else bg)

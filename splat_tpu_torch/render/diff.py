@@ -57,7 +57,7 @@ from splat_tpu_torch.render.binning import (FEATURE_DIM, TileBins,
                                             build_tile_bins)
 from splat_tpu_torch.render.kernels import _ppt, _untile
 # the work list the kernels share with K2; the names stay importable here
-from splat_tpu_torch.render import plan
+from splat_tpu_torch.render import graph, plan
 from splat_tpu_torch.render.plan import (BLOCKS_PER_SM,  # noqa: F401
                                          SPLIT_BLOCKS, SPLIT_MIN_PAIRS,
                                          THREADS,
@@ -305,6 +305,8 @@ def rasterize_train_fwd(bins: TileBins, h: int, w: int,
 rasterize_train_fwd.launches = 0
 # the last launch's count of split tiles, a (1,) int32 tensor on the card
 rasterize_train_fwd.split_tiles = None
+graph.count_replays(rasterize_train_fwd, ("launches",),
+                    last=("split_tiles",))
 
 
 def rasterize_train_bwd_plain(bins: TileBins, g_c, g_lt, lt, cut, h: int,
@@ -424,6 +426,7 @@ def rasterize_train_bwd(bins: TileBins, g_c, g_lt, lt, cut, h: int, w: int,
 
 
 rasterize_train_bwd.launches = 0
+graph.count_replays(rasterize_train_bwd, ("launches",))
 rasterize_train_bwd.split_tiles = None
 
 

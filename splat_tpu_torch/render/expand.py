@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from splat_tpu_torch import _build
+from splat_tpu_torch.render import graph
 
 
 def _check_cull(cull, tile_wh) -> None:
@@ -138,3 +139,4 @@ def expand_pair_keys(first_slot, tx0, ty0, span_w, depth_bits, total, *,
 expand_pair_keys.launches = 0
 # of those, the launches of the cull variant
 expand_pair_keys.cull_launches = 0
+graph.count_replays(expand_pair_keys, ("launches", "cull_launches"))

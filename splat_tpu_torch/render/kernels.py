@@ -46,7 +46,7 @@ import torch
 from splat_tpu_torch import _build
 from splat_tpu_torch.config import RenderConfig, check_kernel_limits
 from splat_tpu_torch.render.binning import FEATURE_DIM, TileBins
-from splat_tpu_torch.render import plan
+from splat_tpu_torch.render import graph, plan
 from splat_tpu_torch.render.plan import THREADS
 
 # pixels per thread the kernels are instantiated for
@@ -262,3 +262,5 @@ rasterize_tiles.subtile_launches = 0
 rasterize_tiles.split_tiles = None
 # and the order in which its blocks took the tiles, (T,) int32
 rasterize_tiles.tile_order = None
+graph.count_replays(rasterize_tiles, ("launches", "subtile_launches"),
+                    last=("split_tiles", "tile_order"))

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from splat_tpu_torch.config import RenderConfig
+from splat_tpu_torch.device import filled
 from splat_tpu_torch.ops.projection import project_gaussians
 from splat_tpu_torch.render.binning import build_tile_bins
 from splat_tpu_torch.render.kernels import rasterize_tiles
@@ -41,8 +42,7 @@ def render_tiled(scene, camera, config: RenderConfig | None = None, *,
         bgc = tuple(config.background)
         if config.alpha_channel:
             bgc = bgc + (0.0,)  # nothing rendered: zero coverage
-        img = torch.tensor(bgc, dtype=torch.float32, device=dev).expand(
-            h // ss, w // ss, len(bgc)).clone()
+        img = filled(bgc, dev).expand(h // ss, w // ss, len(bgc)).clone()
         if return_stats:
             z = torch.zeros((), dtype=torch.int64, device=dev)
             return img, {"num_pairs": z, "overflow": z, "visible": z,
@@ -68,10 +68,16 @@ def render_tiled_checked(scene, camera, config: RenderConfig | None = None):
     """render_tiled that raises on duplication-buffer overflow (one host
     sync): capacity-bounded binning must never truncate silently."""
     img, stats = render_tiled(scene, camera, config, return_stats=True)
+    raise_on_overflow(stats)
+    return img
+
+
+def raise_on_overflow(stats) -> None:
+    """Raise CapacityOverflow where ``render_tiled``'s stats report
+    dropped pairs (one host read)."""
     overflow = int(stats["overflow"])
     if overflow > 0:
         raise CapacityOverflow(
             f"tile duplication buffer overflow: {overflow} pairs dropped "
             f"(num_pairs={int(stats['num_pairs'])}); raise "
             f"RenderConfig.max_dup_factor")
-    return img

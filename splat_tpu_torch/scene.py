@@ -163,29 +163,34 @@ class GaussianScene:
         mutable where ``splat_tpu``'s arrays are not: the memo is keyed
         on every leaf's storage address and version counter, so a leaf
         edited in place (``scene.means.add_(...)``, or through a view)
-        gives a fresh pack.  Edits through ``.data``, which bypass the
-        version counter, are not seen.  Scenes of inference tensors,
-        which have no version counter, are packed afresh every call.
+        re-packs.  Edits through ``.data``, which bypass the version
+        counter, are not seen.  Scenes of inference tensors, which have no
+        version counter, re-pack every call.  A re-pack refills the
+        memoized pack's buffer where it lies, so a frame captured on it
+        (``render/graph.py``) replays on the edited scene; an earlier
+        pack of the scene shares that buffer and sees the edit too.
         """
         leaves = tuple(getattr(self, k) for k in _FIELDS)
-        memo = device is None and not any(t.is_inference() for t in leaves)
-        if memo:
-            key = tuple((t.data_ptr(), t._version) for t in leaves)
-            hit = self.__dict__.get("_packed_cache")
-            if hit is not None and hit[0] == key:
-                return hit[1]
         n = self.num_gaussians
+        hit = self.__dict__.get("_packed_cache") if device is None else None
+        key = (None if any(t.is_inference() for t in leaves)
+               else tuple((t.data_ptr(), t._version) for t in leaves))
+        if hit is not None and key is not None and hit[0] == key:
+            return hit[1]
+        if hit is not None and hit[1].buffer.shape != (PACKED_ROWS, n):
+            hit = None                  # a leaf resized in place
         with torch.inference_mode(False), torch.no_grad():
-            buf = torch.empty((PACKED_ROWS, n), dtype=torch.float32,
-                              device=self.device if device is None
-                              else torch.device(device))
+            buf = (hit[1].buffer if hit is not None else torch.empty(
+                (PACKED_ROWS, n), dtype=torch.float32,
+                device=self.device if device is None
+                else torch.device(device)))
             buf[0:3].copy_(self.means.T)
             buf[3:7].copy_(self.quats.T)
             buf[7:10].copy_(self.scales.T)
             buf[10].copy_(self.opacities)
             buf[11:].copy_(self.sh.reshape(n, 48).T)
         out = DeviceScene.from_buffer(buf)
-        if memo:
+        if device is None:
             object.__setattr__(self, "_packed_cache", (key, out))
         return out
 

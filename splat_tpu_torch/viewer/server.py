@@ -7,7 +7,10 @@ keys = +-10 degrees of yaw/pitch like the reference, R = reset, drag to
 orbit, wheel to dolly, M = colour/depth, T = raw/PNG transport, -/+ = the
 0.5/1.0/2.0 resolution ladder) and draws the frames it gets back.  Frames
 are rendered one at a time behind a lock, on the scene's device, inside
-``torch.inference_mode()``.
+``torch.inference_mode()``, each by the compiled frame of its (mode,
+scale), as ``splat_tpu``'s viewer jits one: on the card a replay of a
+captured CUDA graph (``render/graph.py``), captured on the handler thread
+that first asks for it.
 
 :func:`make_server` builds the server; :func:`serve` runs it until Ctrl-C.
 Standard library only on the host side.
@@ -136,14 +139,15 @@ def make_server(scene, camera, config=None, *, host: str = "127.0.0.1",
     ``X-Splat-Overflow``, ``X-Splat-W`` and ``X-Splat-H``.  transport is
     the page's initial choice.  The tiled path renders with its stats, so
     duplication-buffer overflow reaches the page's HUD; at scale > 1 the
-    pair capacity grows by scale^2.
+    pair capacity grows by scale^2.  The server's ``render_pose(yaw,
+    pitch, dist, mode, scale)`` gives a request's (H, W, C) uint8 frame
+    and overflow without HTTP.
     """
     if transport not in ("raw", "png"):
         raise ValueError(f"transport must be 'raw' or 'png', "
                          f"got {transport!r}")
     from splat_tpu_torch.config import RenderConfig
-    from splat_tpu_torch.render.api import render_fn, resolve_method
-    from splat_tpu_torch.render.tiled import render_tiled
+    from splat_tpu_torch.render.api import frame_fn, resolve_method
     from splat_tpu_torch.scene import GaussianScene
     from splat_tpu_torch.utils.image import encode_png
 
@@ -158,6 +162,18 @@ def make_server(scene, camera, config=None, *, host: str = "127.0.0.1",
             dup = math.ceil(config.max_dup_factor * scale * scale * 4) / 4
             cfg = dataclasses.replace(cfg, max_dup_factor=dup)
         return cfg
+
+    fns = {}
+
+    def frame_for(mode: str, scale: float):
+        """The compiled frame of (mode, scale), made at its first request;
+        a handler thread captures beside the server's other threads."""
+        key = (mode, scale)
+        if key not in fns:
+            f = frame_fn(m, config_for(mode, scale),
+                         return_stats=m == "tiled")
+            fns[key] = f if m == "tiled" else (lambda s, c: (f(s, c), None))
+        return fns[key]
 
     if isinstance(scene, GaussianScene):
         scene = scene.pack_device()   # the feature-major layout, once
@@ -176,14 +192,10 @@ def make_server(scene, camera, config=None, *, host: str = "127.0.0.1",
             cam = dataclasses.replace(
                 cam, h=max(8, int(camera.h * scale) & ~1),
                 w=max(8, int(camera.w * scale) & ~1))
-        cfg = config_for(mode, scale)
         # inference mode is per thread: requests arrive on handler threads
         with lock, torch.inference_mode():
-            if m == "tiled":
-                img, stats = render_tiled(scene, cam, cfg, return_stats=True)
-                overflow = int(stats["overflow"])
-            else:
-                img, overflow = render_fn(m, cfg)(scene, cam), 0
+            img, stats = frame_for(mode, scale)(scene, cam)
+            overflow = 0 if stats is None else int(stats["overflow"])
             img = (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(torch.uint8)
             return img.cpu().numpy(), overflow
 
@@ -249,7 +261,9 @@ def make_server(scene, camera, config=None, *, host: str = "127.0.0.1",
                 self.send_response(404)
                 self.end_headers()
 
-    return ThreadingHTTPServer((host, port), Handler)
+    srv = ThreadingHTTPServer((host, port), Handler)
+    srv.render_pose = render_pose
+    return srv
 
 
 def serve(scene, camera, config=None, *, host: str = "127.0.0.1",

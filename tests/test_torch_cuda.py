@@ -611,3 +611,183 @@ def test_cli_render_and_viewer_on_card(dev, tmp_path):
     want = stt.render(scene, cam.with_pose(yaw=0.2), cfg,
                       as_uint8=True).cpu().numpy()
     assert np.abs(frame.astype(int) - want.astype(int)).max() <= 1
+
+
+# ---- the compiled frame (render/graph.py): captured CUDA graphs ----------
+
+def _graph_frame(dev, n=20000, h=200, w=300):
+    scene = stt.random_scene(n, seed=1, extent=2.0,
+                             scale_range=(0.005, 0.05), device=dev)
+    cam = stt.Camera.create(h=h, w=w, position=(0.0, 0.0, 4.0), yaw=0.4,
+                            device=dev)
+    return scene.pack_device(), cam
+
+
+@pytest.mark.parametrize("cfg_kw", [{}, dict(render_mode="depth"),
+                                    dict(subtile_exit=True,
+                                         subtile_heavy_pairs=0,
+                                         cull_pairs=True)],
+                         ids=["default", "depth", "both_knobs"])
+def test_compiled_frame_replays_eager_bit_for_bit(dev, cfg_kw):
+    """render_fn on the card captures once and replays: each pose of a
+    two-pose sequence equal bit for bit to eager render_tiled, K1 and K2
+    counted once a replay, split_tiles pointing at the replayed graph."""
+    from splat_tpu_torch.render import graph
+    scene, cam = _graph_frame(dev)
+    cfg = stt.RenderConfig(**cfg_kw)
+    f = stt.render_fn("tiled", cfg)
+    caps = graph.counts["captures"]
+    for yaw in (0.0, 0.3):
+        c = cam.with_pose(yaw=yaw)
+        want = stt.render_tiled(scene, c, cfg)
+        k1, k2 = expand_pair_keys.launches, rasterize_tiles.launches
+        got = f(scene, c)
+        if yaw == 0.0:            # the capture's warm-up launches once
+            k1, k2 = k1 + 1, k2 + 1
+        assert expand_pair_keys.launches == k1 + 1
+        assert rasterize_tiles.launches == k2 + 1
+        assert got.mean() > 0.01 and torch.equal(got, want), yaw
+        split = rasterize_tiles.split_tiles
+        assert split is not None and split.device == dev
+    assert graph.counts["captures"] == caps + 1
+    # a fresh tensor each call, as JAX returns a fresh array
+    a, b = f(scene, c), f(scene, c)
+    assert a.data_ptr() != b.data_ptr() and torch.equal(a, b)
+
+
+def test_compiled_frame_reads_an_in_place_edit(dev):
+    from splat_tpu_torch.render import graph
+    scene, cam = _graph_frame(dev)
+    cfg = stt.RenderConfig()
+    f = stt.render_fn("tiled", cfg)
+    before = f(scene, cam)
+    caps = graph.counts["captures"]
+    scene.buffer[0].add_(0.05)             # every mean moves in x
+    got = f(scene, cam)
+    assert graph.counts["captures"] == caps        # the same graph
+    assert not torch.equal(got, before)
+    assert torch.equal(got, stt.render_tiled(scene, cam, cfg))
+    # another buffer with the same values is another key, equal image
+    other = stt.DeviceScene.from_buffer(scene.buffer.clone())
+    assert torch.equal(f(other, cam), got)
+    assert graph.counts["captures"] == caps + 1
+
+
+def test_render_overflow_retry_through_graphs(dev):
+    """render()'s auto capacity through graphs: a stale, too-small cached
+    capacity is a capture of its own, overflows in its replay and is
+    re-measured; the image equals the first render's."""
+    from splat_tpu_torch.render import api, graph
+    from splat_tpu_torch.render.tiled import CapacityOverflow
+    scene = stt.random_scene(5000, seed=3, extent=2.0,
+                             scale_range=(0.01, 0.06), device=dev)
+    cam = stt.Camera.create(h=64, w=64, position=(0.0, 0.0, 4.0),
+                            device=dev)
+    api._AUTO_CONFIG_CACHE.clear()
+    img = stt.render(scene, cam)
+    (key, (ref_w, cfg)), = api._AUTO_CONFIG_CACHE.items()
+    small = stt.RenderConfig(max_dup_factor=0.05)
+    api._AUTO_CONFIG_CACHE[key] = (ref_w, small)
+    caps = graph.counts["captures"]
+    again = stt.render(scene, cam)
+    # the small capacity's capture overflowed; the re-measured capacity is
+    # the first render's, whose graph is still cached
+    assert graph.counts["captures"] == caps + 1
+    assert torch.equal(again, img)
+    assert api._AUTO_CONFIG_CACHE[key][1] == cfg
+    with pytest.raises(CapacityOverflow):
+        stt.render(scene, cam, small, method="tiled")
+    assert torch.equal(img, stt.render_tiled(scene.pack_device(), cam, cfg))
+
+
+@pytest.mark.parametrize("kind", ["edited", "inference"])
+def test_render_of_a_changing_scene_captures_once(dev, kind):
+    """render() of a GaussianScene edited in place between frames, and of
+    a scene of inference tensors (re-packed every call): the pack is
+    refilled where it lies, so one capture serves every frame, each equal
+    to eager render_tiled, and reserved memory stops growing."""
+    from splat_tpu_torch.render import graph
+    with torch.inference_mode(kind == "inference"):
+        scene = stt.random_scene(20000, seed=5, extent=2.0,
+                                 scale_range=(0.005, 0.05), device=dev)
+    cam = stt.Camera.create(h=96, w=128, position=(0.0, 0.0, 4.0),
+                            device=dev)
+    cfg = stt.RenderConfig(max_dup_factor=8.0)
+    graph.clear()
+    caps = graph.counts["captures"]
+    reserved = []
+    for i in range(4):
+        with torch.inference_mode(kind == "inference"), torch.no_grad():
+            scene.opacities.mul_(0.9)
+        img = stt.render(scene, cam, cfg, method="tiled")
+        want = stt.render_tiled(scene.pack_device(), cam, cfg)
+        assert torch.equal(img, want), i
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved(dev))
+    assert graph.counts["captures"] == caps + 1
+    assert reserved[-1] == reserved[1], reserved
+
+
+def test_viewer_render_pose_replays_eager(dev):
+    from splat_tpu_torch.render import graph
+    from splat_tpu_torch.viewer.server import make_server
+    scene, cam = _graph_frame(dev, h=120, w=160)
+    cfg = stt.RenderConfig(max_dup_factor=4.0)
+    srv = make_server(scene, cam, cfg, port=0)
+    try:
+        for mode, scale in (("color", 1.0), ("depth", 1.0), ("color", 0.5),
+                            ("color", 1.0)):
+            reps = graph.counts["replays"]
+            img, overflow = srv.render_pose(0.2, 0.1, 1.1, mode, scale)
+            assert graph.counts["replays"] == reps + 1 and overflow == 0
+            pos = (cam.position.cpu().numpy() * np.float32(1.1))
+            c = cam.with_pose(yaw=0.2, pitch=0.1, position=pos)
+            if scale != 1.0:
+                c = dataclasses.replace(c, h=60, w=80)
+            want = stt.render_tiled(scene, c, dataclasses.replace(
+                cfg, render_mode=mode))
+            want = (torch.clamp(want, 0, 1) * 255 + 0.5).to(torch.uint8)
+            np.testing.assert_array_equal(img, want.cpu().numpy())
+    finally:
+        srv.server_close()
+
+
+def test_failed_capture_raises_and_caches_nothing(dev):
+    """A frame that syncs with the host cannot be captured: the capture
+    raises, nothing is cached, and the card renders on."""
+    from splat_tpu_torch.render import graph
+    scene, cam = _graph_frame(dev, n=5000, h=64, w=64)
+    cfg = stt.RenderConfig()
+
+    def syncs(s, c):
+        img = stt.render_tiled(s, c, cfg)
+        return img * float(img.sum())          # a host read mid-frame
+
+    k1 = expand_pair_keys.launches
+    n = len(graph._CACHE)
+    with pytest.raises(RuntimeError):
+        graph.compiled(syncs, "syncs")(scene, cam)     # the shared pool
+    assert len(graph._CACHE) == n
+    assert expand_pair_keys.launches == k1 + 1     # the warm-up only
+    with pytest.raises(RuntimeError):
+        graph.capture(syncs, scene, cam)               # a pool of its own
+    assert torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev)
+    # the cache's next capture goes into a new shared pool
+    got = stt.render_fn("tiled", cfg)(scene, cam)
+    assert torch.equal(got, stt.render_tiled(scene, cam, cfg))
+
+
+def test_chained_bench_compiled_equals_eager(dev):
+    from splat_tpu_torch.utils.benchmark import chained_bench
+    scene, cam = _graph_frame(dev)
+    cfg = stt.RenderConfig()
+    k2 = rasterize_tiles.launches
+    g = chained_bench(scene, cam, cfg, 4)
+    # one warm-up frame, then the sweep's and the audit's warm-ups and one
+    # replay each: 1 + 4 x 4 frames
+    assert rasterize_tiles.launches == k2 + 17
+    e = chained_bench(scene, cam, cfg, 4, compiled=False)
+    assert g["mean_pixel"] == e["mean_pixel"] and g["compile_s"] > 0.0
+    for k in ("overflow", "num_pairs", "visible"):
+        assert g[k] == e[k], k
+    assert e["compile_s"] == 0.0 and g["overflow"] == 0

@@ -194,13 +194,26 @@ def test_pack_memo():
     assert ts.pad_to(64).pack_device().num_gaussians == 64
     # an explicit device is a fresh pack, never the memo
     assert ts.pack_device("cpu") is not p1
-    # a leaf edited in place, directly or through a view, re-packs
+    # a leaf edited in place, directly or through a view, re-packs; the
+    # re-pack refills the memoized buffer where it lies
+    where = p1.buffer.data_ptr()
     ts.means.add_(1.0)
     p2 = ts.pack_device()
     assert p2 is not p1 and torch.equal(p2.mx, ts.means[:, 0])
     ts.sh[:, 3, 1].fill_(0.25)
     p3 = ts.pack_device()
     assert p3 is not p2 and bool((p3.sh[3 * 3 + 1] == 0.25).all())
+    assert p2.buffer.data_ptr() == p3.buffer.data_ptr() == where
+    # a scene of inference tensors (no version counter) re-packs every
+    # call, into the same buffer
+    with torch.inference_mode():
+        inf = stt.random_scene(16, seed=3, device="cpu")
+    q1 = inf.pack_device()
+    with torch.inference_mode():
+        inf.opacities.mul_(0.5)
+    q2 = inf.pack_device()
+    assert q2.buffer.data_ptr() == q1.buffer.data_ptr()
+    assert torch.equal(q2.opacities, inf.opacities)
     # a pack made inside inference_mode is an ordinary tensor, and the
     # memo stays usable outside it
     fresh = stt.random_scene(16, seed=2, device="cpu")
