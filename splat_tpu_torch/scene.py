@@ -205,8 +205,9 @@ class DeviceScene:
     :meth:`GaussianScene.pack_device` or :meth:`from_buffer`, every field
     is a row view of one (59, N) buffer (:attr:`buffer`).  Read by
     ``ops.projection._scene_cols``: the inference frame, ``render()``, the
-    command line, the viewer and the sharded renders take it.  Training
-    takes a ``GaussianScene``.
+    command line, the viewer and the sharded renders take it, and
+    training projects the differentiable pack of its raw parameters that
+    ``train.RawParams.pack`` builds afresh every step.
     """
 
     mx: torch.Tensor

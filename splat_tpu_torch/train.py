@@ -3,7 +3,8 @@
 * **Unconstrained raw parameters** (:class:`RawParams`): log scales, logit
   opacities and unnormalised quaternions, so that plain gradient steps
   never leave the valid domain; ``to_scene`` applies the loaders'
-  activations.
+  activations, and ``pack`` packs the activated scene feature major for
+  the training step's projections.
 * **Loss**: mean L2 + ``l1_weight`` L1 (+ ``dssim_weight`` (1 - SSIM))
   over the views, rendered densely (exact autograd, O(N H W)) or through
   the tiled training kernels (``render/diff.py``).
@@ -36,7 +37,7 @@ from splat_tpu_torch.ops.projection import project_gaussians
 from splat_tpu_torch.render.binning import count_pairs
 from splat_tpu_torch.render.dense import render_dense
 from splat_tpu_torch.render.diff import render_tiled_diff
-from splat_tpu_torch.scene import GaussianScene
+from splat_tpu_torch.scene import DeviceScene, GaussianScene
 
 RAW_FIELDS = ("means", "quats", "log_scales", "logit_opacities", "sh")
 
@@ -83,9 +84,31 @@ class RawParams:
                              opacities=torch.sigmoid(self.logit_opacities),
                              sh=self.sh)
 
+    def pack(self) -> DeviceScene:
+        """The activated scene feature major, differentiable in the raw
+        leaves: one fresh (PACKED_ROWS, N) buffer, one concatenation of
+        ``to_scene()``'s activated leaves.  The training step projects its
+        dense rows: a strided column view of an (N, 16, 3) leaf would be
+        answered in the backward by a zero-filled gradient the size of the
+        whole leaf, and the leaf's gradient by the sum of 48 of them.
+        Counted in ``RawParams.pack.packs``.
+
+        Not ``GaussianScene.pack_device``: that pack is memoized and
+        refilled in place for the captured frames that replay on it; this
+        one is a new autograd node at every call."""
+        RawParams.pack.packs += 1
+        n = self.num_gaussians
+        return DeviceScene.from_buffer(torch.cat([
+            self.means.T, self.quats.T, torch.exp(self.log_scales).T,
+            torch.sigmoid(self.logit_opacities)[None],
+            self.sh.reshape(n, 48).T]))
+
     @property
     def num_gaussians(self) -> int:
         return self.means.shape[0]
+
+
+RawParams.pack.packs = 0
 
 
 def save_raw_params(path, raw: RawParams) -> None:
@@ -166,24 +189,36 @@ def ssim(a: torch.Tensor, b: torch.Tensor, *, window: int = 11,
     return torch.mean(s)
 
 
-def photometric_loss(raw: RawParams, cameras, targets, config: RenderConfig,
-                     l1_weight: float = 0.2, chunk: int = 16, *,
-                     dssim_weight: float = 0.0,
+def photometric_loss(raw: RawParams | DeviceScene, cameras, targets,
+                     config: RenderConfig, l1_weight: float = 0.2,
+                     chunk: int = 16, *, dssim_weight: float = 0.0,
                      method: str = "dense") -> torch.Tensor:
     """Mean over the views of L2 + ``l1_weight`` L1 (+ ``dssim_weight``
-    (1 - SSIM)).  ``cameras`` is a list; ``targets`` (V, H, W, C) matches
-    the renderer's channel count.  method: 'dense' or 'tiled'."""
+    (1 - SSIM)).  ``raw``: the parameters, or their pack
+    (:meth:`RawParams.pack`; the parameters are packed once here).
+    ``cameras`` is a list; ``targets`` (V, H, W, C) matches the
+    renderer's channel count.  method: 'dense' or 'tiled'."""
     if method not in ("dense", "tiled"):
         raise ValueError(f"unknown method {method!r}")
-    scene = raw.to_scene()
+    packed = raw.pack() if isinstance(raw, RawParams) else raw
     losses = []
     for camera, target in zip(cameras, targets):
+        scene = _view_rows(packed)
         if method == "tiled":
             img = render_tiled_diff(scene, camera, config)
         else:
             img = render_dense(scene, camera, config, chunk=chunk)
         losses.append(_view_loss(img, target, l1_weight, dssim_weight))
     return torch.stack(losses).mean()
+
+
+def _view_rows(packed: DeviceScene) -> DeviceScene:
+    """One view's own row views of the pack.  A row's gradient then sums
+    over the view's uses before the views' sums are added, as each view's
+    column views of ``to_scene()`` sum: the two layouts give the same
+    leaf gradients bit for bit (rows shared by the views would add every
+    use into one sum, in another order)."""
+    return DeviceScene.from_buffer(packed.buffer)
 
 
 def _view_loss(img, target, l1_weight: float, dssim_weight: float):
@@ -206,10 +241,10 @@ DEFAULT_LR_SCALES = {
 
 
 @torch.no_grad()
-def _view_pairs(scene: GaussianScene, cameras,
-                config: RenderConfig) -> torch.Tensor:
-    """(V,) int64 pair count of each view, on the device (no sync).  The
-    port's slot demand is its pair count: it has no sentinel slots."""
+def _view_pairs(scene, cameras, config: RenderConfig) -> torch.Tensor:
+    """(V,) int64 pair count of each view of a scene of either layout, on
+    the device (no sync).  The port's slot demand is its pair count: it
+    has no sentinel slots."""
     ss = config.supersample
     pairs = []
     for cam in cameras:
@@ -503,25 +538,27 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
                 f"every topology keeps N % g == 0")
 
     def loss_for_degree(deg: int):
+        """The step's loss: of the RawParams for ``loss_fn``, else of
+        their pack (this rank's shard of it on the TP path)."""
         if loss_fn is not None:
             return loss_fn
         cfg = dataclasses.replace(config, sh_degree=deg)
         if par is None:
-            return lambda r: photometric_loss(r, cameras, targets, cfg,
+            return lambda p: photometric_loss(p, cameras, targets, cfg,
                                               l1_weight, chunk,
                                               dssim_weight=dssim_weight,
                                               method=method)
         if not par.tp:
-            return lambda r: photometric_loss(r, par.cameras, par.targets,
+            return lambda p: photometric_loss(p, par.cameras, par.targets,
                                               cfg, l1_weight, chunk,
                                               dssim_weight=dssim_weight,
                                               method=method)
         from splat_tpu_torch.parallel.sharding import render_slab_tiled_diff
 
-        def tp_loss(r):
-            scene_l = r.to_scene()
+        def tp_loss(p):
             return torch.stack([
-                _view_loss(render_slab_tiled_diff(scene_l, c, cfg, par.mesh),
+                _view_loss(render_slab_tiled_diff(_view_rows(p), c, cfg,
+                                                  par.mesh),
                            t, l1_weight, dssim_weight)
                 for c, t in zip(par.cameras, par.targets)]).mean()
         return tp_loss
@@ -583,12 +620,15 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
             leaves = {k: getattr(raw, k).detach().requires_grad_(True)
                       for k in RAW_FIELDS}
             cur = RawParams(**leaves)
-            loss = seg_loss(cur)
+            if loss_fn is None:
+                packed = cur.pack()
+                loss = seg_loss(packed)
+            else:
+                loss = seg_loss(cur)
             loss.backward()
             if tiled:
                 # demand of the state the gradient was computed at
-                pairs.append(_view_pairs(cur.to_scene(), demand_cams,
-                                         config))
+                pairs.append(_view_pairs(packed, demand_cams, config))
             grads = [leaves[k].grad if leaves[k].grad is not None
                      else torch.zeros_like(leaves[k]) for k in RAW_FIELDS]
             if par is not None:

@@ -4,6 +4,8 @@ their npz checkpoints, SSIM/PSNR, the photometric loss and its gradients
 (dense and tiled), densification, and the fit loop itself.  Each JAX
 result is computed once."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -294,4 +296,87 @@ def test_fit_auto_raises_capacity_after_densification(problem):
                                           grad_threshold=1.0,
                                           pad_multiple=1))
     assert res.densify_log[0]["pruned"] > 0
+    assert np.isfinite(res.losses.numpy()).all()
+
+
+@pytest.fixture(scope="module")
+def pack_problem():
+    """A torch-only problem for the pack's tests: 1,000 gaussians, two
+    64 x 96 views, targets by ``render_tiled`` from the truth, the start
+    dimmed."""
+    truth = stt.random_scene(1000, seed=3, extent=1.5,
+                             scale_range=(0.03, 0.15), device="cpu")
+    cams = stt.orbit_trajectory(stt.Camera.create(h=64, w=96,
+                                                  position=(0.0, 0.0, 4.0),
+                                                  device="cpu"),
+                                num_frames=2, yaw_sweep=0.6)
+    cfg = stt.RenderConfig(max_dup_factor=8.0)
+    targets = torch.stack([stt.render_tiled(truth, c, cfg) for c in cams])
+    start = dataclasses.replace(truth, sh=truth.sh * 0.6)
+    return {"start": start, "cams": cams, "targets": targets}
+
+
+def _strided_loss(raw, cams, targets, cfg, method):
+    """photometric_loss as it read the strided columns of
+    ``raw.to_scene()``: one scene, projected by each view."""
+    scene = raw.to_scene()
+    losses = []
+    for cam, target in zip(cams, targets):
+        img = (tt.render_tiled_diff(scene, cam, cfg) if method == "tiled"
+               else tt.render_dense(scene, cam, cfg))
+        losses.append(tt._view_loss(img, target, 0.2, 0.2))
+    return torch.stack(losses).mean()
+
+
+@pytest.mark.parametrize("method", ["tiled", "dense"])
+@pytest.mark.parametrize("sh_degree", [3, 1])
+def test_pack_gradients_equal_strided_columns(pack_problem, method,
+                                              sh_degree):
+    """One step's loss and leaf gradients through ``RawParams.pack()``'s
+    rows equal those through ``to_scene()``'s strided columns bit for bit:
+    each element of a leaf's gradient is the same per-view sums added in
+    the same order, where the columns add zeros besides."""
+    cfg = stt.RenderConfig(max_dup_factor=8.0, sh_degree=sh_degree)
+    raw = tt.RawParams.from_scene(pack_problem["start"])
+    got, want = {}, {}
+    for grads, loss_of in ((got, lambda r: tt.photometric_loss(
+            r, pack_problem["cams"], pack_problem["targets"], cfg,
+            dssim_weight=0.2, method=method)),
+            (want, lambda r: _strided_loss(
+                r, pack_problem["cams"], pack_problem["targets"], cfg,
+                method))):
+        leaves = {k: getattr(raw, k).clone().requires_grad_(True)
+                  for k in RAW}
+        loss = loss_of(tt.RawParams(**leaves))
+        loss.backward()
+        grads.update({k: leaves[k].grad for k in RAW}, loss=loss.detach())
+    assert torch.equal(got.pop("loss"), want.pop("loss"))
+    for k in RAW:
+        assert torch.equal(got[k], want[k]), k
+        assert bool(got[k].abs().max() > 0), k
+    if sh_degree == 1:          # the unused coefficients take no gradient
+        assert not got["sh"][:, 4:].any() and not want["sh"][:, 4:].any()
+
+
+def test_tiled_fit_projects_the_pack(pack_problem):
+    """A tiled fit of S steps packs S times (the demand pass reuses the
+    loss's pack) and its autograd selects no column: a strided column of
+    ``to_scene()`` would show as ``aten::select_backward``, a zero-filled
+    gradient the size of its leaf.  300 of the gaussians at 32 x 48 keep
+    the profile short."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start = pack_problem["start"].slice(0, 300)
+    cams = stt.orbit_trajectory(stt.Camera.create(**CAM, device="cpu"),
+                                num_frames=2, yaw_sweep=0.6)
+    cfg = stt.RenderConfig(max_dup_factor=8.0)
+    targets = torch.stack([stt.render_tiled(start, c, cfg) for c in cams])
+    before = tt.RawParams.pack.packs
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        res = stt.fit(start, cams, targets * 0.9, steps=2, config=cfg,
+                      method="tiled", dssim_weight=0.2)
+    assert tt.RawParams.pack.packs - before == 2
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert names.count("aten::select_backward") == 0
+    assert names.count("aten::stack") > 0     # the rows' gradients
     assert np.isfinite(res.losses.numpy()).all()
