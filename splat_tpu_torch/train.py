@@ -417,16 +417,25 @@ class _Mesh:
         self.shard = lambda x: sharding.shard_scene(x, mesh)
 
     def average(self, grads: list, loss: torch.Tensor):
-        """Gradients and loss averaged over 'd', in one all_reduce."""
+        """Gradients and loss averaged over 'd', in one all_reduce under
+        the profiler span ``stt.fit.allreduce``; its calls and the bytes
+        it reduces are counted in ``_Mesh.average.calls`` and
+        ``_Mesh.average.bytes``.  The gradients are views of the reduced
+        buffer, used within the step; the loss is a copy of its own, as
+        fit keeps every step's loss and a view would keep the whole
+        buffer alive with it."""
         flat = torch.cat([g.reshape(-1) for g in grads]
                          + [loss.detach().reshape(1)])
-        torch.distributed.all_reduce(flat, op=torch.distributed.ReduceOp.AVG,
-                                     group=self.d_group)
+        _Mesh.average.calls += 1
+        _Mesh.average.bytes += flat.numel() * flat.element_size()
+        with torch.profiler.record_function("stt.fit.allreduce"):
+            torch.distributed.all_reduce(
+                flat, op=torch.distributed.ReduceOp.AVG, group=self.d_group)
         out, at = [], 0
         for g in grads:
             out.append(flat[at:at + g.numel()].view_as(g))
             at += g.numel()
-        return out, flat[-1]
+        return out, flat[-1].clone()
 
     def demand(self, pairs: list) -> torch.Tensor:
         """The segment's peak pair demand from each step's (V_local,)
@@ -448,6 +457,10 @@ class _Mesh:
     def whole(self, raw: RawParams) -> RawParams:
         return RawParams(**{k: self.gather(getattr(raw, k))
                             for k in RAW_FIELDS})
+
+
+_Mesh.average.calls = 0
+_Mesh.average.bytes = 0
 
 
 def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,

@@ -421,6 +421,18 @@ def test_parallel_fit_equals_single_device(world, case):
                                        rtol=1e-4, atol=1e-6)
 
 
+def test_dp_fit_keeps_no_exchange_buffer(world):
+    """Each step's loss that fit keeps owns 4 bytes, not the all-reduced
+    buffer of every gradient it came from; the exchange counts one call
+    of (the leaves' numel + 1) x 4 bytes a step."""
+    _, _, outs = world
+    for out in outs:
+        np.testing.assert_array_equal(out["dp_kept_loss_bytes"], [4, 4])
+        calls, nbytes = out["dp_exchange"]
+        assert calls == 3
+        assert nbytes == 3 * (int(out["dp_numel"]) + 1) * 4
+
+
 # ---- g. the dryrun entry point ----------------------------------------
 
 def test_dryrun_world_2_cpu(world):

@@ -23,6 +23,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import splat_tpu_torch as stt  # noqa: E402
+from splat_tpu_torch import train  # noqa: E402
 from splat_tpu_torch.ops.projection import ProjectedGaussians  # noqa: E402
 from splat_tpu_torch.parallel import dryrun, sharding  # noqa: E402
 
@@ -177,6 +178,32 @@ def tp_gradients(inp, out: dict, rank: int) -> None:
         out[f"tp_grad_{k}"] = leaves[k].grad
 
 
+def exchange_counters() -> tuple:
+    """(calls, bytes) of fit's gradient exchange so far, (-1, -1) where
+    the program keeps no such counters."""
+    avg = train._Mesh.average
+    return getattr(avg, "calls", -1), getattr(avg, "bytes", -1)
+
+
+def kept_loss_bytes(run_fit) -> np.ndarray:
+    """The bytes of storage behind the loss each step of ``run_fit()``
+    took from the exchange, which fit keeps until it returns."""
+    real, kept = train._Mesh.average, []
+
+    def average(self, grads, loss):
+        grads, loss = real(self, grads, loss)
+        kept.append(loss.untyped_storage().nbytes())
+        return grads, loss
+    # the counters the exchange bumps through its class attribute
+    average.calls, average.bytes = 0, 0
+    train._Mesh.average = average
+    try:
+        run_fit()
+    finally:
+        train._Mesh.average = real
+    return np.array(kept)
+
+
 def fits(inp, out: dict, rank: int) -> None:
     """Case f: data-parallel fit at (4, 1) (SE(3) views; then with
     densification; then supersampled) and tensor-parallel fit at (1, 4)."""
@@ -184,10 +211,17 @@ def fits(inp, out: dict, rank: int) -> None:
     targets = torch.from_numpy(inp["f_targets"])
     start = scene_of(inp, "f")
     mesh41 = sharding.make_mesh(4, 1, device="cpu")
+    counted = exchange_counters()
     res = stt.fit(start, cams(inp, "f_se3"), targets, steps=3,
                   method="tiled", config=cfg, mesh=mesh41)
     out["dp_losses"] = res.losses
     out["dp_means"] = res.scene.means
+    out["dp_exchange"] = np.array(exchange_counters()) - np.array(counted)
+    out["dp_numel"] = np.array(sum(
+        getattr(start, k).numel() for k in FIELDS))
+    out["dp_kept_loss_bytes"] = kept_loss_bytes(
+        lambda: stt.fit(start, cams(inp, "f"), targets, steps=2,
+                        method="tiled", config=cfg, mesh=mesh41))
     res = stt.fit(start, cams(inp, "f"), targets, steps=2, method="tiled",
                   config=cfg, mesh=mesh41, densify_every=1)
     out["dp_densify_losses"] = res.losses
