@@ -8,6 +8,13 @@ Run from the root of a checkout on a machine with NVIDIA Hopper cards
 Phases (any failure raises and exits non-zero):
   1. print the card's name and power limit, build the CUDA kernels from
      ``splat_tpu_torch/csrc`` and print the build time;
+  1b. the projection front end (``render/front.py``, kernel
+     ``csrc/project.cu``) against its plain version at the 1M random, 1M
+     surface and 3M surface frames @1920x1080: every output equal bit for
+     bit (with and without the cull rows) and the count-only form's two
+     counts; the kernel's device time, the whole call's (the camera
+     record's ops included) and device ops a call, the plain version's
+     device time, and the bound of each form;
   2. kernel K1 (pair expansion) against its plain PyTorch version at 1M
      random gaussians @1920x1080 and at 1M surface gaussians: keys, owners,
      tile edges, num_pairs and overflow must be exactly equal;
@@ -26,7 +33,9 @@ Phases (any failure raises and exits non-zero):
      one captured CUDA graph) of 1M random and 1M surface gaussians
      @1920x1080 with overflow 0, each scene packed by ``pack_device()``
      as the repo's bench.py packs it;
-  5. K1 and K2 must have launched during phase 4;
+  5. K1 and K2 must have launched during phase 4, and the front end as
+     often as K1 (once a frame), and once count-only (the fitted scene's
+     capacity);
   6. the training path with every launch counter at 0: the fitted-20k
      recipe of scripts/make_fitted_scene.py (surface_scene(20_000), 4
      orbit poses at 400x300, perturbed start, ``fit(method="tiled")``,
@@ -34,7 +43,9 @@ Phases (any failure raises and exits non-zero):
      ``render_dense``) must more than halve its loss with every loss
      finite; then timed tiled ``fit`` steps on 1M surface gaussians
      @1920x1080 with 2 orbit views and overflow 0;
-  7. K3 and K4 must have launched during phase 6;
+  7. K3 and K4 must have launched during phase 6; the front end once
+     count-only a view in each fit's capacity audit and each step's
+     demand pass, and once a frame of the two target renders alone;
   8. the command line and the viewer, with every launch counter at 0
      before the inference commands and again before ``fit``: the 1M
      surface scene saved as a PLY and loaded by the native loader (its
@@ -50,7 +61,10 @@ Phases (any failure raises and exits non-zero):
      overflow 0, the first raw frame within 1 of the render, the median
      pose-to-bytes time of 10 raw requests); ``fit --targets --cameras``
      over those SE(3) views, 30 tiled steps, loss more than halved.  K1
-     and K2 must launch on the inference commands, K3 and K4 on ``fit``.
+     and K2 must launch on the inference commands, the front end as often
+     as K1; K3 and K4 on ``fit``, the front end count-only once a view in
+     the audit and each step and once for the final renders' capacity,
+     and a frame for each final render and the capture's warm-up.
      Prints a JSON line of the phase's times.
   9. the multi-device paths (``splat_tpu_torch.parallel``, ``fit(mesh=)``)
      on a world of one NCCL rank a visible card: this script started again
@@ -95,20 +109,23 @@ Phases (any failure raises and exits non-zero):
      its image within SUBTILE_ATOL of the whole-tile one, and at the
      surface frame the heaviest tile on the grouped walk with groups that
      stop apart.  Then, each counted from 0 and held to exactly one K1 and
-     one K2 launch a render with its knob's variant: ``stt.render`` with
+     one K2 launch a render with its knob's variant, and one front end
+     launch a render but the slab split's: ``stt.render`` with
      each knob (equal bit for bit to ``rasterize_tiles`` on the same bins
      and to ``render_tiled``), ``render_tiled`` with both, a 2-way slab
      split with both (within alpha_min of it), and yaw sweeps of each
      setting in turns.  Prints a ``{"knobs": ...}`` JSON line.
   11. the feature-major scene (``pack_device()``, one (59, N) buffer) at
      the 1M random and surface frames @1920x1080: the pack's time and its
-     fields equal to the scene's; ``project_gaussians`` on both layouts,
-     its time with CUDA events (PROJ_REPS calls behind the spinning
-     kernel), its device-busy time and CUDA kernels a call from
+     fields equal to the scene's; the frame's front end on both layouts
+     (a ``GaussianScene`` is packed afresh in the call), its outputs equal
+     bit for bit, its time with CUDA events (PROJ_REPS calls behind the
+     spinning kernel), its device-busy time and device ops a call from
      ``torch.profiler``; ``render_tiled`` on both layouts equal bit for
-     bit, overflow 0; ``stt.render`` of a ``GaussianScene`` packing once
-     over 3 frames and equal to ``render_tiled`` of the pack, with K1 and
-     K2 launched once a frame, counted from 0; yaw sweeps of both layouts
+     bit, and to the frame binned from the plain front end, overflow 0;
+     ``stt.render`` of a ``GaussianScene`` packing once over 3 frames and
+     equal to ``render_tiled`` of the pack, with K1, K2 and the front end
+     launched once a frame, counted from 0; yaw sweeps of both layouts
      in turns (unpacked, packed, packed, unpacked).  Phase 9 adds
      ``render_sharded_tiled`` of the packed scene's shard, by both
      routes, equal bit for bit to the unpacked shard's.
@@ -118,20 +135,23 @@ Phases (any failure raises and exits non-zero):
      and surface frames @1920x1080, packed: ``render_fn``'s first call
      (capture ms, its pool's MiB) beside one eager frame; its replays
      equal to eager ``render_tiled`` bit for bit at the captured pose, at
-     a new pose (that replay traced by ``torch.profiler``: one K1 and one
-     K2 kernel on the card, as many as the counters add from 0), after an
+     a new pose (that replay traced by ``torch.profiler``: one K1, one K2
+     and one front end kernel on the card, as many as the counters add
+     from 0), after an
      in-place edit of the packed buffer and after its undo, with one
      capture in all; ``stt.render`` of a ``GaussianScene`` edited in
      place between 3 frames and of one of inference tensors, each one
-     capture, equal to eager, reserved memory flat after the first frame;
+     capture, equal to eager, reserved memory (the eager reference
+     frames' cached blocks released) and allocated memory flat after the
+     first frame;
      ``chained_bench``'s 30-frame sweep as one captured program against
      eager dispatch, in turns (eager, compiled, compiled, eager), the
      same mean pixel bit for bit, and 10-frame sweeps of each under
      ``torch.profiler`` (device-busy ms, idle share); one replay of a
-     10-frame sweep program traced: ten K1 and ten K2 kernels on the
-     card, as many as the counters add; the CLI ``orbit`` of the 1M
-     random PLY (one capture, a
-     replay a frame, K1/K2 launched frames + 1 times); the viewer's
+     10-frame sweep program traced: ten of each of the three kernels on
+     the card, as many as the counters add; the CLI ``orbit`` of the 1M
+     random PLY (one capture, a replay a frame, K1, K2 and the front end
+     launched frames + 1 times); the viewer's
      ``render_pose`` equal to eager bit for bit and the median pose ->
      bytes of raw requests through its graph (surface).  Prints a
      ``{"compiled": ...}`` JSON line.
@@ -210,7 +230,15 @@ PARALLEL_TIMEOUT = 300.0
 # tolerance tests/test_tiled.py holds splat_tpu's to (a group stops only
 # once its pixels have T < alpha_min / 4096, so it leaves out less)
 SUBTILE_ATOL = 1e-6
-# phase 11: projections timed with CUDA events, profiled, and packs timed
+# phase 1b: the projection front end's kernel and its plain version at
+# these frames (N, scene), each @1920x1080 from (0, 0, 4); bytes a gaussian
+# of its full and count-only forms (59 f32 rows in and six int32 fields
+# and 11 f32 rows out; rows 0-10 in), FP32 and SFU operations a gaussian
+# (splatbench/roofline.py's projection)
+FRONT_FRAMES = ((N_BIG, "random"), (N_BIG, "surface"), (3_000_000, "surface"))
+FRONT_BYTES, FRONT_COUNT_BYTES = 236 + 68, 44
+FRONT_OPS, FRONT_SFU = 360, 6
+# phase 11: front ends timed with CUDA events, profiled, and packs timed
 PROJ_REPS = 20
 PROFILE_REPS = 5
 PACK_REPS = 5
@@ -247,6 +275,33 @@ SFU_OPS_PER_S = None      # set by main() from the card
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+# the counters a kernel wrapper adds its launches to
+COUNTERS = ("launches", "count_launches")
+
+
+def saved_launches(kernels) -> list:
+    """Every launch counter of the wrappers, to put back later."""
+    return [(fn, a, getattr(fn, a)) for fn in kernels for a in COUNTERS
+            if hasattr(fn, a)]
+
+
+def restore_launches(saved: list) -> None:
+    for fn, a, v in saved:
+        setattr(fn, a, v)
+
+
+def zero_launches(kernels) -> None:
+    """Every launch counter of the wrappers at 0: K1-K4's, and the front
+    end's frames and count-only launches."""
+    restore_launches([(fn, a, 0) for fn, a, _ in saved_launches(kernels)])
+
+
+def front_launches(front) -> dict:
+    """The front end's frame launches and its count-only ones."""
+    return {"front": front.launches - front.count_launches,
+            "front_count": front.count_launches}
 
 
 def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
@@ -518,6 +573,113 @@ def check_train(bins, h, w, cfg):
     return k3, k4
 
 
+def front_mismatch(got, want) -> list:
+    """The fields of two ``binning.GaussianFront`` (or two count tensors)
+    that differ bit for bit."""
+    import torch
+    if isinstance(want, torch.Tensor):
+        return [] if torch.equal(got, want) else ["counts"]
+    bad = []
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                bad.append(f.name)
+            continue
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if a.shape != b.shape or not torch.equal(a, b):
+            bad.append(f.name)
+    return bad
+
+
+def check_front(device) -> tuple[dict, dict]:
+    """Phase 1b: the projection front end (``render/front.py``, kernel
+    ``csrc/project.cu``) against its plain version at FRONT_FRAMES: every
+    output bit for bit, with and without the cull rows, and the count-only
+    form's two counts.  Times each form: the kernel alone and the whole
+    call (the camera record's ops with it) as ``torch.profiler`` sees the
+    card, the call with CUDA events, the plain version's device time.
+    Returns the kernel records of the full and the count-only form (the
+    1M random frame, the others under ``surface_*`` and ``surface3m_*``
+    keys)."""
+    import torch
+    import splat_tpu_torch as stt
+    from splat_tpu_torch.render.front import (project_front,
+                                              project_front_plain)
+
+    cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
+    recs = {}
+    for n, kind in FRONT_FRAMES:
+        scene, dup = bench_scene(kind, n, device)
+        packed = scene.pack_device()
+        del scene
+        cfg = stt.RenderConfig(max_dup_factor=dup)
+        tag = f"{kind} {n}"
+        for c in (cfg, dataclasses.replace(cfg, cull_pairs=True)):
+            bad = front_mismatch(project_front(packed, cam, c),
+                                 project_front_plain(packed, cam, c))
+            require(not bad, f"front end, {tag}, cull_pairs="
+                             f"{c.cull_pairs}: {bad} differ from the plain "
+                             f"version")
+        got = project_front(packed, cam, cfg, count_only=True)
+        want = project_front_plain(packed, cam, cfg, count_only=True)
+        require(torch.equal(got, want), f"front end count-only, {tag}: "
+                                        f"{got.tolist()} != {want.tolist()}")
+        visible, pairs = want.tolist()
+        forms = {}
+        # the count-only form's bound is its bytes alone (it skips the SH)
+        for form, count_only, nbytes, ops, sfu in (
+                ("full", False, FRONT_BYTES, FRONT_OPS, FRONT_SFU),
+                ("count", True, FRONT_COUNT_BYTES, 0, 0)):
+            def call(co=count_only):
+                return project_front(packed, cam, cfg, count_only=co)
+
+            def plain(co=count_only):
+                return project_front_plain(packed, cam, cfg, count_only=co)
+
+            prof = profile_calls(call, PROFILE_REPS,
+                                 match="project_front_kernel")
+            prof_p = profile_calls(plain, PROFILE_REPS)
+            name = "project_front" + ("_count" if count_only else "")
+            rec = kernel_record(name, "splat_tpu_torch/csrc/project.cu",
+                                "none: the XLA fusion of splat_tpu/ops/"
+                                "projection.py and render/binning.py's "
+                                "per-gaussian prep", 0.0, prof["match_ms"],
+                                prof_p["busy_ms"], nbytes * n, ops * n,
+                                sfu * n)
+            rec.update(call_busy_ms=prof["busy_ms"],
+                       call_device_ops=prof["kernels"],
+                       call_event_ms=cuda_ms(call, PROJ_REPS),
+                       plain_device_ops=prof_p["kernels"],
+                       visible=visible, pairs=pairs, n=n)
+            forms[form] = rec
+            print(f"[front] {name} {tag} @{W}x{H}: every output equal to "
+                  f"the plain version bit for bit ({visible} visible, "
+                  f"{pairs} pairs); kernel {rec['ms']:.4f} ms, the call "
+                  f"{rec['call_busy_ms']:.4f} ms busy in "
+                  f"{rec['call_device_ops']:.0f} device ops "
+                  f"({rec['call_event_ms']:.4f} ms by events), plain "
+                  f"{rec['plain_ms']:.4f} ms busy in "
+                  f"{rec['plain_device_ops']:.0f}, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        recs[(n, kind)] = forms
+        del packed, got, want
+        torch.cuda.empty_cache()
+    out = []
+    for form in ("full", "count"):
+        rec = recs[FRONT_FRAMES[0]][form]
+        for (n, kind), prefix in zip(FRONT_FRAMES[1:],
+                                     ("surface", "surface3m")):
+            rec.update({f"{prefix}_{key}": recs[(n, kind)][form][key]
+                        for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "call_busy_ms", "call_device_ops",
+                                    "call_event_ms", "visible", "pairs",
+                                    "n")})
+        out.append(rec)
+    return tuple(out)
+
+
 def main_path(device) -> None:
     """Phase 4: the port's entry points end to end."""
     import torch
@@ -729,7 +891,7 @@ def cli_and_viewer(device, kernels) -> dict:
     from splat_tpu_torch.utils.image import read_png, write_png
     from splat_tpu_torch.viewer.server import make_server
 
-    expand, raster, fwd, bwd = kernels
+    expand, raster, fwd, bwd, front = kernels
     dev = ["--device", "cuda"]
     build = os.path.join(ROOT, "build")
     os.makedirs(build, exist_ok=True)
@@ -776,8 +938,7 @@ def cli_and_viewer(device, kernels) -> dict:
         require(json.loads(out)["num_gaussians"] == N_BIG, "info: count")
 
         # ---- render: the CLI's PNG against stt.render, same inputs
-        for fn in kernels:
-            fn.launches = 0
+        zero_launches(kernels)
         png = os.path.join(tmp, "render.png")
         _, err = run_cli(["render", ply, "--size", f"{W}x{H}", "--pos",
                           "0,0,4", "--dup-factor", "auto", "--stats",
@@ -788,10 +949,9 @@ def cli_and_viewer(device, kernels) -> dict:
                                 device=device)
         dup = stt.pair_stats(scene, cam)["suggested_dup_factor"]
         cfg = stt.RenderConfig(max_dup_factor=dup)
-        counts = [fn.launches for fn in kernels]
+        counts = saved_launches(kernels)
         want = stt.render(scene, cam, cfg, as_uint8=True).cpu().numpy()
-        for fn, n in zip(kernels, counts):   # the reference is not the path
-            fn.launches = n
+        restore_launches(counts)             # the reference is not the path
         diff = int(np.abs(read_png(png).astype(int) - want).max())
         require(diff <= 1, f"render PNG vs stt.render: max abs {diff} > 1")
         print(f"[cli render] PNG vs stt.render: max abs {diff} (u8); "
@@ -879,7 +1039,9 @@ def cli_and_viewer(device, kernels) -> dict:
         require(not th.is_alive(), "viewer thread did not stop")
         viewer_ms = statistics.median(times)
         inference = {"K1": expand.launches, "K2": raster.launches,
-                     "K3": fwd.launches, "K4": bwd.launches}
+                     "K3": fwd.launches, "K4": bwd.launches,
+                     **front_launches(front)}
+        saved = saved_launches(kernels)
         # the same poses without the server: what a request spends in the
         # render (the viewer's compiled frame), the overflow read and the
         # copy to the host (not counted)
@@ -895,8 +1057,7 @@ def cli_and_viewer(device, kernels) -> dict:
                 (torch.clamp(img, 0.0, 1.0) * 255.0 + 0.5).to(
                     torch.uint8).cpu().numpy()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
-        for fn, key in zip(kernels, ("K1", "K2", "K3", "K4")):
-            fn.launches = inference[key]
+        restore_launches(saved)
         print(f"[viewer] {N_BIG} surface @{W}x{H}: raw/png/depth/0.5x/2.0x "
               f"served with overflow 0, first raw frame = render (max abs "
               f"{diff}); pose->bytes median {viewer_ms:.1f} ms over "
@@ -921,8 +1082,7 @@ def cli_and_viewer(device, kernels) -> dict:
             opacities=torch.clamp(fscene.opacities * 0.8, 0.01, 0.99))
         init = os.path.join(tmp, "init.ply")
         stt.save_ply(init, start)
-        for fn in kernels:
-            fn.launches = 0
+        zero_launches(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out, _ = run_cli(["fit", "--targets", tdir, "--cameras", cams_json,
@@ -937,7 +1097,8 @@ def cli_and_viewer(device, kernels) -> dict:
         require(last < first / 2, f"fit: loss {first} -> {last}, not "
                                   f"halved")
         training = {"K1": expand.launches, "K2": raster.launches,
-                    "K3": fwd.launches, "K4": bwd.launches}
+                    "K3": fwd.launches, "K4": bwd.launches,
+                    **front_launches(front)}
         print(f"[cli fit] {len(se3)} SE(3) views @400x300, {FIT_STEPS} "
               f"tiled steps from a perturbed fitted_20k: loss {first:.5f} "
               f"-> {last:.5f}; {fit_s * 1e3 / FIT_STEPS:.2f} ms/step "
@@ -945,8 +1106,18 @@ def cli_and_viewer(device, kernels) -> dict:
               f"renders and PLY write included)")
     require(inference["K1"] > 0 and inference["K2"] > 0,
             f"K1/K2 did not launch on render/orbit/bench/serve: {inference}")
+    # the front end once a frame, as K1
+    require(inference["front"] == inference["K1"],
+            f"the front end's frames differ from K1's: {inference}")
     require(training["K3"] > 0 and training["K4"] > 0,
             f"K3/K4 did not launch on fit: {training}")
+    # fit's capacity audit and each step's demand pass, count-only once a
+    # view; the final PSNR renders size their capacity once (count-only)
+    # and capture once (its warm-up a frame more than the views)
+    v = len(se3)
+    want = {"front": v + 1, "front_count": v * (FIT_STEPS + 1) + 1}
+    require({k: training[k] for k in want} == want,
+            f"the front end on fit: {training}, not {want}")
     print(f"[cli] launches on render/orbit/bench/serve: {inference}; on "
           f"fit: {training}")
     print(json.dumps({"cli": {
@@ -1655,18 +1826,22 @@ def knob_path(device, kernels) -> tuple[dict, dict, dict]:
         # ---- the entry points with each knob, each counted from 0: every
         # render must launch K1 and K2 once, each with its knob's variant,
         # and a capture's warm-up once more for each frame it captured
-        def counted(what, fn, cull, subtile, renders=1, captured_frames=1):
-            for f in kernels:
-                f.launches = 0
+        def counted(what, fn, cull, subtile, renders=1, captured_frames=1,
+                    front=True):
+            # front: the renders project through the front end (the slab
+            # renders take project_gaussians' records)
+            zero_launches(kernels)
             expand.cull_launches = raster.subtile_launches = 0
             caps = graph.counts["captures"]
             out = fn()
             n = renders + (graph.counts["captures"] - caps) * captured_frames
             got = {"K1": expand.launches, "K1_cull": expand.cull_launches,
                    "K2": raster.launches, "K2_subtile": raster.subtile_launches,
-                   "K3": kernels[2].launches, "K4": kernels[3].launches}
+                   "K3": kernels[2].launches, "K4": kernels[3].launches,
+                   **front_launches(kernels[4])}
             want = {"K1": n, "K1_cull": n * cull, "K2": n,
-                    "K2_subtile": n * subtile, "K3": 0, "K4": 0}
+                    "K2_subtile": n * subtile, "K3": 0, "K4": 0,
+                    "front": n * front, "front_count": 0}
             require(got == want, f"{kind} {what}: launches {got}, not {want}")
             launches[what] = got
             return out
@@ -1693,7 +1868,7 @@ def knob_path(device, kernels) -> tuple[dict, dict, dict]:
         proj_b = project_gaussians(scene, cam, both)
         parts = counted("2 slabs both", lambda: [
             sharding.render_slab_tiled(proj_b, g * (H // 2), H // 2, W, both)
-            for g in range(2)], 1, 1, renders=2)
+            for g in range(2)], 1, 1, renders=2, front=False)
         require(all(int(o) == 0 for _, o in parts), f"{kind}: slab overflow")
         # the slabs' tile grids differ from the frame's (540 rows), so the
         # whole-tile exits fall elsewhere: each render stops a pixel only
@@ -1747,10 +1922,11 @@ def knob_path(device, kernels) -> tuple[dict, dict, dict]:
     return k1, k2, figures
 
 
-def profile_calls(fn, reps: int, top: int = 6) -> dict:
+def profile_calls(fn, reps: int, top: int = 6, match: str = "") -> dict:
     """``fn`` called ``reps`` times under ``torch.profiler`` after one
-    warm-up call: per call, the device-busy ms, the CUDA kernels launched
-    and the ``top`` kernels by device time (names cut to 80 characters)."""
+    warm-up call: per call, the device-busy ms, the CUDA kernels launched,
+    the ``top`` kernels by device time (names cut to 80 characters) and
+    the device ms of the kernels whose name holds ``match``."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1764,25 +1940,31 @@ def profile_calls(fn, reps: int, top: int = 6) -> dict:
         torch.cuda.synchronize()
     per: dict[str, float] = {}
     launches = 0
+    matched = 0.0
     for evt in prof.key_averages():
         if evt.device_type == DeviceType.CUDA:
             key = evt.key[:80]
             per[key] = per.get(key, 0.0) + evt.self_device_time_total
             launches += evt.count
+            if match and match in evt.key:
+                matched += evt.self_device_time_total
     ranked = sorted(per.items(), key=lambda kv: -kv[1])[:top]
     return {"busy_ms": sum(per.values()) / 1e3 / reps,
             "kernels": launches / reps,
-            "top_ms": {k: v / 1e3 / reps for k, v in ranked}}
+            "top_ms": {k: v / 1e3 / reps for k, v in ranked},
+            "match_ms": matched / 1e3 / reps}
 
 
-# the card's names of K1's and K2's kernels (K2's variants among them)
-TRACED_KERNELS = {"K1": "expand_pairs_kernel", "K2": "raster_kernel"}
+# the card's names of K1's, K2's and the front end's kernels (K2's
+# variants among them)
+TRACED_KERNELS = {"K1": "expand_pairs_kernel", "K2": "raster_kernel",
+                  "front": "project_front_kernel"}
 
 
 def traced_launches(run) -> dict:
-    """K1's and K2's launches that ``torch.profiler`` saw the card run
-    during ``run()``: its kernels counted by name, not by the wrappers'
-    counters."""
+    """K1's, K2's and the front end's launches that ``torch.profiler`` saw
+    the card run during ``run()``: its kernels counted by name, not by the
+    wrappers' counters."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1808,15 +1990,18 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
     K1/K2 launches of its ``stt.render`` frames."""
     import torch
     import splat_tpu_torch as stt
-    from splat_tpu_torch.ops.projection import project_gaussians
     from splat_tpu_torch.render import graph
+    from splat_tpu_torch.render.binning import bin_front
+    from splat_tpu_torch.render.front import (project_front,
+                                              project_front_plain)
+    from splat_tpu_torch.render.kernels import rasterize_tiles
     from splat_tpu_torch.scene import PACKED_ROWS, DeviceScene
     from splat_tpu_torch.utils.benchmark import chained_bench
 
     expand, raster = kernels[:2]
     cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
     figures: dict = {"sharded_equal": sharded_equal}
-    launches = {"K1": 0, "K2": 0}
+    launches = {"K1": 0, "K2": 0, "front": 0}
     for kind in ("random", "surface"):
         scene, dup = bench_scene(kind, N_BIG, device)
         cfg = stt.RenderConfig(max_dup_factor=dup)
@@ -1842,25 +2027,25 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
         # each value read once and written once
         fig["pack_bound_ms"], _ = bound(2 * 4 * PACKED_ROWS * N_BIG, 0)
 
-        # ---- the projection on both layouts
+        # ---- the frame's front end on both layouts: the pack's rows as
+        # they lie, a GaussianScene packed afresh in each call
         layouts = {"unpacked": scene, "packed": packed}
-        fig["projection_ms"] = {
-            name: cuda_ms(lambda sc=sc: project_gaussians(sc, cam, cfg),
+        fig["front_ms"] = {
+            name: cuda_ms(lambda sc=sc: project_front(sc, cam, cfg),
                           PROJ_REPS) for name, sc in layouts.items()}
         prof = {name: profile_calls(
-            lambda sc=sc: project_gaussians(sc, cam, cfg), PROFILE_REPS)
+            lambda sc=sc: project_front(sc, cam, cfg), PROFILE_REPS)
             for name, sc in layouts.items()}
-        fig["projection_busy_ms"] = {k: v["busy_ms"] for k, v in prof.items()}
-        fig["projection_kernels"] = {k: v["kernels"] for k, v in prof.items()}
-        fig["projection_top_ms"] = {k: v["top_ms"] for k, v in prof.items()}
-        a = project_gaussians(scene, cam, cfg)
-        b = project_gaussians(packed, cam, cfg)
-        require(all(torch.equal(getattr(a, f.name), getattr(b, f.name))
-                    for f in dataclasses.fields(a)),
-                f"{kind}: projected fields differ across layouts")
-        del a, b
+        fig["front_busy_ms"] = {k: v["busy_ms"] for k, v in prof.items()}
+        fig["front_device_ops"] = {k: v["kernels"] for k, v in prof.items()}
+        fig["front_top_ms"] = {k: v["top_ms"] for k, v in prof.items()}
+        bad = front_mismatch(project_front(scene, cam, cfg),
+                             project_front(packed, cam, cfg))
+        require(not bad, f"{kind}: front end fields {bad} differ across "
+                         f"layouts")
 
-        # ---- the images on both layouts, bit for bit
+        # ---- the images: both layouts, and the pack's frame binned from
+        # the front end's plain version, bit for bit
         img_u, st_u = stt.render_tiled(scene, cam, cfg, return_stats=True)
         img_p, st_p = stt.render_tiled(packed, cam, cfg, return_stats=True)
         require(int(st_u["overflow"]) == 0 and int(st_p["overflow"]) == 0,
@@ -1868,7 +2053,13 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
         require(torch.equal(img_u, img_p),
                 f"{kind}: render_tiled differs across layouts (max abs "
                 f"{float((img_u - img_p).abs().max())})")
+        img_f = rasterize_tiles(bin_front(project_front_plain(
+            packed, cam, cfg), H, W, cfg), H, W, cfg)
+        require(torch.equal(img_f, img_p),
+                f"{kind}: render_tiled differs from the frame of the plain "
+                f"front end (max abs {float((img_f - img_p).abs().max())})")
         fig["images_equal"] = True
+        del img_f
 
         # ---- stt.render of a GaussianScene: one pack over 3 frames, K1
         # and K2 once a frame, counted from 0
@@ -1883,12 +2074,12 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
 
         DeviceScene.from_buffer = classmethod(counted)
         try:
-            for fn in kernels:
-                fn.launches = 0
+            zero_launches(kernels)
             caps = graph.counts["captures"]
             imgs = [stt.render(fresh, v, cfg) for v in views]
             torch.cuda.synchronize()
             got = {"K1": expand.launches, "K2": raster.launches,
+                   **front_launches(kernels[4]),
                    "captures": graph.counts["captures"] - caps}
         finally:
             DeviceScene.from_buffer = real
@@ -1896,7 +2087,8 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
                                  f"times over 3 frames")
         # one capture of the packed frame, its warm-up launching once, and
         # a replay a frame
-        require(got == {"K1": 4, "K2": 4, "captures": 1},
+        require(got == {"K1": 4, "K2": 4, "front": 4, "front_count": 0,
+                        "captures": 1},
                 f"{kind}: render() of 3 frames launched {got}")
         for k in launches:
             launches[k] += got[k]
@@ -1919,15 +2111,16 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
         figures[kind] = fig
         print(f"[packed] {kind} {N_BIG} @{W}x{H}: pack {fig['pack_ms']:.4f} "
               f"ms (bound {fig['pack_bound_ms']:.4f}; first "
-              f"{fig['pack_first_host_ms']:.2f} ms host); projection "
-              f"unpacked / packed: {fig['projection_ms']['unpacked']:.4f} / "
-              f"{fig['projection_ms']['packed']:.4f} ms (events, "
+              f"{fig['pack_first_host_ms']:.2f} ms host); front end "
+              f"unpacked / packed: {fig['front_ms']['unpacked']:.4f} / "
+              f"{fig['front_ms']['packed']:.4f} ms (events, "
               f"{PROJ_REPS} calls), device busy "
-              f"{fig['projection_busy_ms']['unpacked']:.4f} / "
-              f"{fig['projection_busy_ms']['packed']:.4f} ms, "
-              f"{fig['projection_kernels']['unpacked']:.0f} / "
-              f"{fig['projection_kernels']['packed']:.0f} kernels a call; "
-              f"images equal; render() packed once in 3 frames, launches "
+              f"{fig['front_busy_ms']['unpacked']:.4f} / "
+              f"{fig['front_busy_ms']['packed']:.4f} ms, "
+              f"{fig['front_device_ops']['unpacked']:.0f} / "
+              f"{fig['front_device_ops']['packed']:.0f} device ops a call; "
+              f"images equal, and to the plain front end's frame; render() "
+              f"packed once in 3 frames, launches "
               f"{got}; ms/frame unpacked {sweeps['unpacked']}, packed "
               f"{sweeps['packed']}")
         del scene, packed, layouts
@@ -1949,7 +2142,11 @@ def compiled_path(device, kernels) -> dict:
     from splat_tpu_torch.utils.benchmark import (_sweep_fns, chained_bench,
                                                  profile_frames)
 
-    expand, raster = kernels[:2]
+    expand, raster, front = kernels[0], kernels[1], kernels[4]
+
+    def counted_now():
+        return {"K1": expand.launches, "K2": raster.launches,
+                "front": front.launches}
     cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
     figures: dict = {}
     per_replay = {}
@@ -1969,8 +2166,7 @@ def compiled_path(device, kernels) -> dict:
                 ply = os.path.join(tmp, "random_1m.ply")
                 stt.save_ply(ply, scene)
                 caps, reps = graph.counts["captures"], graph.counts["replays"]
-                for fn in kernels:
-                    fn.launches = 0
+                zero_launches(kernels)
                 out, err = run_cli(["orbit", ply, "--size", f"{W}x{H}",
                                     "--pos", "0,0,4", "--frames",
                                     str(COMPILED_ORBIT_FRAMES),
@@ -1980,12 +2176,13 @@ def compiled_path(device, kernels) -> dict:
                                     "--device", "cuda"])
                 got = {"captures": graph.counts["captures"] - caps,
                        "replays": graph.counts["replays"] - reps,
-                       "K1": expand.launches, "K2": raster.launches}
+                       **counted_now()}
                 # one capture (its warm-up launches once) and a replay a
                 # frame
                 n = COMPILED_ORBIT_FRAMES
                 require(got == {"captures": 1, "replays": n, "K1": n + 1,
-                                "K2": n + 1} and "WARNING" not in err,
+                                "K2": n + 1, "front": n + 1}
+                        and "WARNING" not in err,
                         f"orbit through the graph: {got} {err}")
                 fig["cli_orbit"] = dict(got, ms_per_frame=float(
                     out.split(" ms/frame")[0].split()[-1]))
@@ -2021,16 +2218,15 @@ def compiled_path(device, kernels) -> dict:
         eq = {"pose_0": torch.equal(img0, render_tiled(packed, cam, cfg))}
         c1 = cam.with_pose(yaw=0.3)
         want1 = render_tiled(packed, c1, cfg)
-        for fn in kernels:
-            fn.launches = 0
+        zero_launches(kernels)
         reps = graph.counts["replays"]
         out = []
         traced = traced_launches(lambda: out.append(f(packed, c1)))
         img1, = out
-        counted = {"K1": expand.launches, "K2": raster.launches}
+        counted = counted_now()
         per_replay[kind] = dict(traced, replays=graph.counts["replays"]
                                 - reps, counted=counted)
-        require(traced == counted == {"K1": 1, "K2": 1}
+        require(traced == counted == {"K1": 1, "K2": 1, "front": 1}
                 and per_replay[kind]["replays"] == 1,
                 f"{kind}: a replay launched {per_replay[kind]}")
         eq["pose_1"] = torch.equal(img1, want1)
@@ -2058,7 +2254,7 @@ def compiled_path(device, kernels) -> dict:
                 s = stt.GaussianScene(**{k: getattr(scene, k).clone()
                                          for k in fields})
             caps_r = graph.counts["captures"]
-            reserved, same = [], []
+            reserved, cached, allocated, same = [], [], [], []
             for _ in range(3):
                 with torch.inference_mode(name == "inference"), \
                         torch.no_grad():
@@ -2067,11 +2263,22 @@ def compiled_path(device, kernels) -> dict:
                 same.append(torch.equal(img, render_tiled(
                     s.pack_device(), cam, cfg)))
                 torch.cuda.synchronize()
+                cached.append(torch.cuda.memory_reserved(device) / mib)
+                # the eager reference frame's blocks, freed and cached by
+                # the allocator, are not render()'s: released before the
+                # reading (they may or may not fit the next reference
+                # frame beside render()'s output, and a new segment then
+                # comes from the allocator's packing, not from render())
+                torch.cuda.empty_cache()
                 reserved.append(torch.cuda.memory_reserved(device) / mib)
+                allocated.append(torch.cuda.memory_allocated(device) / mib)
             got = {"captures": graph.counts["captures"] - caps_r,
-                   "equal": all(same), "reserved_mib": reserved}
+                   "equal": all(same), "reserved_mib": reserved,
+                   "allocated_mib": allocated,
+                   "reserved_with_cache_mib": cached}
             require(got["captures"] == 1 and got["equal"]
-                    and reserved[-1] == reserved[1],
+                    and reserved[-1] == reserved[1]
+                    and allocated[-1] == allocated[1],
                     f"{kind}: render() of an {name} scene: {got}")
             fig[f"render_{name}_scene"] = got
             del s, img
@@ -2102,11 +2309,10 @@ def compiled_path(device, kernels) -> dict:
         # one replay of a 10-frame sweep program, traced: ten K1 and ten
         # K2 launches on the card, as many as the counters add
         sweep = graph.capture(_sweep_fns(cfg, 10)[0], packed, cam)
-        for fn in kernels:
-            fn.launches = 0
+        zero_launches(kernels)
         traced = traced_launches(lambda: sweep(packed, cam))
-        counted = {"K1": expand.launches, "K2": raster.launches}
-        require(traced == counted == {"K1": 10, "K2": 10},
+        counted = counted_now()
+        require(traced == counted == {"K1": 10, "K2": 10, "front": 10},
                 f"{kind}: a 10-frame sweep replay traced {traced}, counted "
                 f"{counted}")
         fig["sweep_replay_launches"] = traced
@@ -2207,6 +2413,7 @@ def main(argv) -> int:
                                              rasterize_train_fwd)
     from splat_tpu_torch.render import graph
     from splat_tpu_torch.render.expand import expand_pair_keys
+    from splat_tpu_torch.render.front import project_front
     from splat_tpu_torch.render.kernels import rasterize_tiles
 
     card = subprocess.run(
@@ -2235,6 +2442,7 @@ def main(argv) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    kf, kfc = check_front(device)
     cam = stt.Camera.create(h=H, w=W, position=(0.0, 0.0, 4.0), device=device)
     recs = {}
     # the surface frame holds the heavy tiles; its plain versions walk
@@ -2257,11 +2465,10 @@ def main(argv) -> int:
     require(k2["surface_split_tiles"] > 0,
             "K2 split no tile at the surface frame")
     kernels = (expand_pair_keys, rasterize_tiles, rasterize_train_fwd,
-               rasterize_train_bwd)
+               rasterize_train_bwd, project_front)
 
     def zero_counts():
-        for fn in kernels:
-            fn.launches = 0
+        zero_launches(kernels)
 
     def release_graphs():
         # the cached graphs hold their scenes and pools: none outlives its
@@ -2273,22 +2480,40 @@ def main(argv) -> int:
     main_path(device)
     k1["launches"] = expand_pair_keys.launches
     k2["launches"] = rasterize_tiles.launches
+    # a frame launches the front end once, as it launches K1; the fitted
+    # scene's render() sizes its capacity by one count-only launch
+    fl = front_launches(project_front)
+    require(fl == {"front": k1["launches"], "front_count": 1},
+            f"front end on the inference path: {fl}, K1 {k1['launches']}")
+    kf["launches"] = fl["front"]
     release_graphs()
     zero_counts()
     training_path(device)
     k3["launches"] = rasterize_train_fwd.launches
     k4["launches"] = rasterize_train_bwd.launches
+    fl = front_launches(project_front)
     print(f"[train] launches on the training path: K1 "
           f"{expand_pair_keys.launches}, K2 {rasterize_tiles.launches}, "
-          f"K3 {k3['launches']}, K4 {k4['launches']}")
-    for k in (k1, k2, k3, k4):
+          f"K3 {k3['launches']}, K4 {k4['launches']}, front end {fl}")
+    for k in (k1, k2, k3, k4, kf):
         require(k["launches"] > 0, f"{k['name']} never launched on its "
                                    f"path")
+    # count-only, once a view in each fit's capacity audit and in each
+    # step's demand pass: the 20k recipe's 4 views, the 1M fits' 2 views
+    # (a one-step warm-up and the timed run); the projection of the
+    # training steps stays off the kernel.  The 1M fit's two target
+    # renders: one capture's warm-up and two replays
+    want = {"front": 3, "front_count": 4 * (FIT_STEPS + 1) + 2 * (1 + 1)
+            + 2 * (BIG_FIT_STEPS + 1)}
+    require(fl == want, f"front end on the training path: {fl}, not {want}")
+    kfc["launches"] = fl["front_count"]
     cli_counts = cli_and_viewer(device, kernels)
     release_graphs()
     for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
         k["cli_launches"] = cli_counts["fit" if key in ("K3", "K4")
                                        else "inference"][key]
+    kf["cli_launches"] = cli_counts["inference"]["front"]
+    kfc["cli_launches"] = cli_counts["fit"]["front_count"]
     par = parallel_path()
     for k, key in zip((k1, k2, k3, k4), ("K1", "K2", "K3", "K4")):
         k["parallel_launches"] = par["launch_totals"][key]
@@ -2298,10 +2523,12 @@ def main(argv) -> int:
     release_graphs()
     k1["packed_launches"] = packed["launches"]["K1"]
     k2["packed_launches"] = packed["launches"]["K2"]
+    kf["packed_launches"] = packed["launches"]["front"]
     comp = compiled_path(device, kernels)
     k1["launches_per_replay"] = comp["per_replay"]["random"]["K1"]
     k2["launches_per_replay"] = comp["per_replay"]["random"]["K2"]
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k1c, k2s]}))
+    kf["launches_per_replay"] = comp["per_replay"]["random"]["front"]
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k1c, k2s, kf, kfc]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -48,6 +48,9 @@ _SIGNATURES = {
                                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                                   _F, _I, _I, _I, _I, _I, _I, _P],
     "splat_strip_reaches": [_P, _P, _P, _I, _P],
+    "splat_project_front": [_P, _L, _L, _P, _F, _F, _F, _F, _F, _F, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -103,11 +103,10 @@ class Camera:
 
     def eye(self) -> torch.Tensor:
         """World-space camera position after the yaw/pitch orbit."""
-        viewdir = _normalize(self.position - self.target)
-        cos_angle = torch.dot(viewdir, self.up)
+        p = self.position - self.target
+        cos_angle = torch.dot(_normalize(p), self.up)
         pitch = torch.where(cos_angle * torch.sign(self.pitch) > 0.99,
                             torch.zeros_like(self.pitch), self.pitch)
-        p = self.position - self.target
         p = _axis_angle_rotate(p, self.up, self.yaw)
         right = torch.linalg.cross(self.up, self.position)  # sic: base position
         p = _axis_angle_rotate(p, right, pitch)
@@ -120,6 +119,23 @@ class Camera:
 
     def view_matrix(self) -> torch.Tensor:
         return look_at(self.eye(), self.target, self.up)
+
+    def record(self, stale: bool = False) -> torch.Tensor:
+        """(20,) float32 on the camera's device: view rows 0-2, fx, fy,
+        cx, cy, the SH eye (``sh_eye(stale)``) and znear, each equal bit
+        for bit to what ``view_matrix``, ``intrinsics_px`` and ``sh_eye``
+        give.  Device ops only, the eye computed once: a captured frame
+        reads the pose each replay copies in."""
+        eye = self.eye()
+        s, u, f = _look_at_rows(eye, self.target, self.up)
+        focal = (self.h / (2.0 * torch.tan(self.fovy / 2))).reshape(1)
+        cx, cy = (torch.full((1,), v, dtype=torch.float32, device=self.device)
+                  for v in (self.w / 2, self.h / 2))
+        return torch.cat([s, -torch.dot(s, eye)[None], u,
+                          -torch.dot(u, eye)[None], -f,
+                          torch.dot(f, eye)[None], focal, focal, cx, cy,
+                          self.position if stale else eye,
+                          self.znear.reshape(1)])
 
     def projection_matrix(self) -> torch.Tensor:
         return perspective(self.fovy, self.aspect, self.znear, self.zfar)
@@ -243,6 +259,14 @@ class SE3Camera:
     def view_matrix(self) -> torch.Tensor:
         return self.view
 
+    def record(self, stale: bool = False) -> torch.Tensor:
+        """(20,) float32, as :meth:`Camera.record` (``stale`` changes
+        nothing here)."""
+        return torch.cat([self.view[:3].reshape(12), self.fx.reshape(1),
+                          self.fy.reshape(1), self.cx.reshape(1),
+                          self.cy.reshape(1), self.eye(),
+                          self.znear.reshape(1)]).to(torch.float32)
+
     def intrinsics_px(self):
         return self.fx, self.fy, self.cx, self.cy
 
@@ -321,11 +345,16 @@ def _axis_angle_rotate(v, axis, angle):
             + k * torch.dot(k, v) * (1.0 - c))
 
 
-def look_at(eye, center, up) -> torch.Tensor:
-    """Right-handed look-at, glm convention."""
+def _look_at_rows(eye, center, up):
+    """The look-at frame's axes: side, up and forward."""
     f = _normalize(center - eye)
     s = _normalize(torch.linalg.cross(f, up))
-    u = torch.linalg.cross(s, f)
+    return s, torch.linalg.cross(s, f), f
+
+
+def look_at(eye, center, up) -> torch.Tensor:
+    """Right-handed look-at, glm convention."""
+    s, u, f = _look_at_rows(eye, center, up)
     last = filled((0.0, 0.0, 0.0, 1.0), eye.device)
     return torch.stack([
         torch.cat([s, -torch.dot(s, eye)[None]]),

@@ -18,10 +18,9 @@ import weakref
 import torch
 
 from splat_tpu_torch.config import RenderConfig
-from splat_tpu_torch.ops.projection import project_gaussians
-from splat_tpu_torch.render.binning import count_pairs
 from splat_tpu_torch.render import graph
 from splat_tpu_torch.render.dense import render_dense
+from splat_tpu_torch.render.front import project_front
 from splat_tpu_torch.render.tiled import (CapacityOverflow, raise_on_overflow,
                                          render_tiled)
 from splat_tpu_torch.scene import GaussianScene
@@ -87,9 +86,8 @@ def pair_stats(scene, camera, config: RenderConfig | None = None) -> dict:
     config = config or RenderConfig()
     if config.supersample > 1:
         camera = camera.scaled(config.supersample)
-    proj = project_gaussians(scene, camera.to(scene.device), config)
-    visible, pairs = (int(x) for x in count_pairs(proj, camera.h, camera.w,
-                                                  config))
+    visible, pairs = project_front(scene, camera.to(scene.device), config,
+                                   count_only=True).tolist()
     n = scene.num_gaussians
     return {
         "visible": visible,

@@ -7,6 +7,10 @@ dropping the TPU workarounds:
    1/8-px bbox (:func:`quantize_radius_bits` is, as on the TPU, the single
    source of truth for both the tile spans and the raster kernel's bbox
    test, so both packages produce the same pair sets);
+   what the binning reads of each gaussian is a :class:`GaussianFront`
+   (:func:`front_from_proj`), which the frame takes from the projection
+   front end's kernel (``render/front.py``) and :func:`build_tile_bins`
+   from a projection;
 2. per-gaussian pair counts -> exclusive prefix sum (``torch.cumsum``);
 3. the K1 kernel (``render/expand.py``) fills k_cap slots with int64 keys
    ``(tile << 32) | f32 depth bits`` and the owning gaussian's index;
@@ -226,23 +230,74 @@ class SlotLayout:
             cull=self.cull, tile_wh=self.tile_wh)
 
 
-def slot_layout(proj: ProjectedGaussians, h: int, w: int,
-                config: RenderConfig) -> SlotLayout:
-    """Tile spans, pair counts and their prefix sum for one frame."""
-    ntx, nty = _grid(h, w, config)
-    n = proj.depth.shape[0]
+@dataclasses.dataclass(frozen=True)
+class GaussianFront:
+    """What the binning reads of each gaussian, for one frame: the output
+    of the projection front end (``render/front.py``).
+
+    rbits: (N,) int32 quantized radii + visibility (quantize_radius_bits).
+    tx0 / ty0 / span_w / counts: (N,) int32 tile rectangles and pair
+      counts (tile_spans).
+    depth_bits: (N,) int32 bits of the f32 view depths.
+    features: (FEATURE_DIM, N) float32 rows of FEATURE_ROWS, gaussian
+      order (TileBins.features before the sort's gather).
+    cull: (N, 4) f32 :func:`cull_rows`, or None (config.cull_pairs off).
+    num_visible: () int64 visible gaussians.
+    """
+
+    rbits: torch.Tensor
+    tx0: torch.Tensor
+    ty0: torch.Tensor
+    span_w: torch.Tensor
+    counts: torch.Tensor
+    depth_bits: torch.Tensor
+    features: torch.Tensor
+    cull: torch.Tensor | None
+    num_visible: torch.Tensor
+
+
+def front_from_proj(proj: ProjectedGaussians, h: int, w: int,
+                    config: RenderConfig) -> GaussianFront:
+    """The per-gaussian binning inputs of one frame's projection."""
     rbits, (tx0, ty0, sw, counts) = _spans(proj, h, w, config)
+    rx, ry, _ = decode_radius_bits(rbits)
+    color = torch.clamp(proj.color, 0.0, 1.0)
+    feats_n = torch.stack([
+        proj.center_px[:, 0], proj.center_px[:, 1],
+        -0.5 * proj.conic[:, 0], -proj.conic[:, 1], -0.5 * proj.conic[:, 2],
+        color[:, 0], color[:, 1], color[:, 2], proj.opacity,
+        rx * rx, ry * ry,
+    ])                                                      # (F, N)
+    return GaussianFront(rbits=rbits, tx0=tx0, ty0=ty0, span_w=sw,
+                         counts=counts,
+                         depth_bits=proj.depth.contiguous().view(torch.int32),
+                         features=feats_n,
+                         cull=(cull_rows(proj, config.alpha_min)
+                               if config.cull_pairs else None),
+                         num_visible=proj.visible.sum())
+
+
+def front_layout(front: GaussianFront, h: int, w: int,
+                 config: RenderConfig) -> SlotLayout:
+    """The pair counts' prefix sum and the tile spans for one frame."""
+    ntx, nty = _grid(h, w, config)
+    counts = front.counts
+    n = counts.shape[0]
     cum = torch.cumsum(counts, 0, dtype=torch.int64)
     total = (cum[-1:] if n else torch.zeros(1, dtype=torch.int64,
                                             device=cum.device))
-    return SlotLayout(first_slot=cum - counts, tx0=tx0, ty0=ty0, span_w=sw,
-                      depth_bits=proj.depth.contiguous().view(torch.int32),
-                      total=total.contiguous(), rbits=rbits,
+    return SlotLayout(first_slot=cum - counts, tx0=front.tx0, ty0=front.ty0,
+                      span_w=front.span_w, depth_bits=front.depth_bits,
+                      total=total.contiguous(), rbits=front.rbits,
                       k_cap=int(config.max_dup_factor * n),
-                      tiles_x=ntx, tiles_y=nty,
-                      cull=(cull_rows(proj, config.alpha_min)
-                            if config.cull_pairs else None),
+                      tiles_x=ntx, tiles_y=nty, cull=front.cull,
                       tile_wh=(config.tile_w, config.tile_h))
+
+
+def slot_layout(proj: ProjectedGaussians, h: int, w: int,
+                config: RenderConfig) -> SlotLayout:
+    """Tile spans, pair counts and their prefix sum for one frame."""
+    return front_layout(front_from_proj(proj, h, w, config), h, w, config)
 
 
 def tile_edges(sorted_keys, num_tiles: int):
@@ -252,31 +307,28 @@ def tile_edges(sorted_keys, num_tiles: int):
     return torch.searchsorted(sorted_keys, queries).to(torch.int32)
 
 
-def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
-                    config: RenderConfig) -> TileBins:
-    """Bin one frame's projected gaussians into sorted per-tile pairs."""
-    lay = slot_layout(proj, h, w, config)
+def bin_front(front: GaussianFront, h: int, w: int,
+              config: RenderConfig) -> TileBins:
+    """Bin one frame's per-gaussian inputs into sorted per-tile pairs."""
+    lay = front_layout(front, h, w, config)
     keys, owners = lay.expand()
     sorted_keys, perm = torch.sort(keys, stable=True)
     ranks = owners[perm]
     edges = tile_edges(sorted_keys, lay.tiles_x * lay.tiles_y)
-
-    rx, ry, _ = decode_radius_bits(lay.rbits)
-    color = torch.clamp(proj.color, 0.0, 1.0)
-    feats_n = torch.stack([
-        proj.center_px[:, 0], proj.center_px[:, 1],
-        -0.5 * proj.conic[:, 0], -proj.conic[:, 1], -0.5 * proj.conic[:, 2],
-        color[:, 0], color[:, 1], color[:, 2], proj.opacity,
-        rx * rx, ry * ry,
-    ])                                                      # (F, N)
     total = lay.total[0]
     # with the cull, the pairs it kept: those below the unfilled slots' key
     kept = (edges[-1].to(torch.int64) if lay.cull is not None
             else torch.clamp(total, max=lay.k_cap))
-    return TileBins(features=feats_n.index_select(1, ranks),  # (F, K_cap)
+    return TileBins(features=front.features.index_select(1, ranks),
                     tile_start=edges[:-1].contiguous(),
                     tile_end=edges[1:].contiguous(), ranks=ranks,
                     num_pairs=kept,
                     overflow=torch.clamp(total - lay.k_cap, min=0),
                     tiles_x=lay.tiles_x, tiles_y=lay.tiles_y,
-                    num_gaussians=proj.depth.shape[0])
+                    num_gaussians=front.counts.shape[0])
+
+
+def build_tile_bins(proj: ProjectedGaussians, h: int, w: int,
+                    config: RenderConfig) -> TileBins:
+    """Bin one frame's projected gaussians into sorted per-tile pairs."""
+    return bin_front(front_from_proj(proj, h, w, config), h, w, config)

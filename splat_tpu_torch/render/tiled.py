@@ -1,6 +1,7 @@
 """Tiled renderer: the production path.
 
-projection (ops/projection.py) -> tile binning (binning.py, kernel K1) ->
+projection front end (front.py: the projection and each gaussian's
+binning inputs, one kernel) -> tile binning (binning.py, kernel K1) ->
 per-tile compositing (kernels.py, kernel K2).  Port of
 ``splat_tpu/render/tiled.py``.
 """
@@ -11,8 +12,8 @@ import torch
 
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.device import filled
-from splat_tpu_torch.ops.projection import project_gaussians
-from splat_tpu_torch.render.binning import build_tile_bins
+from splat_tpu_torch.render.binning import bin_front
+from splat_tpu_torch.render.front import project_front
 from splat_tpu_torch.render.kernels import rasterize_tiles
 from splat_tpu_torch.utils.image import box_downsample
 
@@ -49,15 +50,15 @@ def render_tiled(scene, camera, config: RenderConfig | None = None, *,
                          "max_tile_pairs": z,
                          "mean_tile_pairs": torch.zeros((), device=dev)}
         return img
-    proj = project_gaussians(scene, camera.to(dev), config)
-    bins = build_tile_bins(proj, h, w, config)
+    front = project_front(scene, camera.to(dev), config)
+    bins = bin_front(front, h, w, config)
     img = box_downsample(rasterize_tiles(bins, h, w, config), ss)
     if return_stats:
         occupancy = bins.tile_end - bins.tile_start
         return img, {
             "num_pairs": bins.num_pairs,
             "overflow": bins.overflow,
-            "visible": proj.visible.sum(),
+            "visible": front.num_visible,
             "max_tile_pairs": occupancy.max(),
             "mean_tile_pairs": occupancy.to(torch.float32).mean(),
         }

@@ -33,10 +33,9 @@ import torch
 
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.device import resolve_device
-from splat_tpu_torch.ops.projection import project_gaussians
-from splat_tpu_torch.render.binning import count_pairs
 from splat_tpu_torch.render.dense import render_dense
 from splat_tpu_torch.render.diff import render_tiled_diff
+from splat_tpu_torch.render.front import packed_scene, project_front
 from splat_tpu_torch.scene import DeviceScene, GaussianScene
 
 RAW_FIELDS = ("means", "quats", "log_scales", "logit_opacities", "sh")
@@ -243,15 +242,16 @@ DEFAULT_LR_SCALES = {
 @torch.no_grad()
 def _view_pairs(scene, cameras, config: RenderConfig) -> torch.Tensor:
     """(V,) int64 pair count of each view of a scene of either layout, on
-    the device (no sync).  The port's slot demand is its pair count: it
+    the device (no sync): one count-only projection front end a view
+    (``render/front.py``).  The port's slot demand is its pair count: it
     has no sentinel slots."""
+    scene = packed_scene(scene)                     # one pack, every view
     ss = config.supersample
     pairs = []
     for cam in cameras:
         if ss > 1:
             cam = cam.scaled(ss)
-        pairs.append(count_pairs(project_gaussians(scene, cam, config),
-                                 cam.h, cam.w, config)[1])
+        pairs.append(project_front(scene, cam, config, count_only=True)[1])
     return torch.stack(pairs)
 
 

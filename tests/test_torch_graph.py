@@ -123,14 +123,17 @@ def test_a_changing_scene_keeps_its_frame_key():
 
 def test_every_kernel_wrapper_registers_its_counters():
     """A replay adds the launches its capture counted to the counters
-    that the kernel wrappers registered: K1-K4, each with its launch
-    count, K2 and K3 with the tensors of their last launch."""
+    that the kernel wrappers registered: the projection front end and
+    K1-K4, each with its launch count, K2 and K3 with the tensors of their
+    last launch."""
     from splat_tpu_torch.render.diff import (rasterize_train_bwd,
                                              rasterize_train_fwd)
     from splat_tpu_torch.render.expand import expand_pair_keys
+    from splat_tpu_torch.render.front import project_front
     from splat_tpu_torch.render.kernels import rasterize_tiles
     got = {fn: (attrs, last) for fn, attrs, last in graph._COUNTED}
     assert got == {
+        project_front: (("launches", "count_launches"), ()),
         expand_pair_keys: (("launches", "cull_launches"), ()),
         rasterize_tiles: (("launches", "subtile_launches"),
                           ("split_tiles", "tile_order")),
