@@ -146,13 +146,13 @@ Phases (any failure raises and exits non-zero):
      first frame;
      ``chained_bench``'s 30-frame sweep as one captured program against
      eager dispatch, in turns (eager, compiled, compiled, eager), the
-     same mean pixel bit for bit, and 10-frame sweeps of each under
-     ``torch.profiler`` (device-busy ms, idle share); one replay of a
-     10-frame sweep program traced: ten of each of the three kernels on
-     the card, as many as the counters add; the CLI ``orbit`` of the 1M
-     random PLY (one capture, a replay a frame, K1, K2 and the front end
-     launched frames + 1 times); the viewer's
-     ``render_pose`` equal to eager bit for bit and the median pose ->
+     same mean pixel bit for bit, and a 10-frame sweep program of each
+     under ``torch.profiler`` (device-busy ms a frame, idle share of the
+     median sweep); one replay of that captured program traced: ten of
+     each of the three kernels on the card, as many as the counters add;
+     the CLI ``orbit`` of the 1M random PLY (one capture, a replay a
+     frame, K1, K2 and the front end launched frames + 1 times); the
+     viewer's ``render_pose`` equal to eager bit for bit and the median pose ->
      bytes of raw requests through its graph (surface).  Prints a
      ``{"compiled": ...}`` JSON line.
   Every inference entry point above (``render``, ``render_fn``,
@@ -161,9 +161,11 @@ Phases (any failure raises and exits non-zero):
   captures, which phases 10 and 11 count; the cache of graphs is emptied
   after each phase that fills it.
 The second-to-last line is a JSON object describing each kernel, with its
-bound (the least time the card could take for its work on these inputs:
-bytes over the memory rate, FP32 operations over the FP32 rate, or
-special-function operations over the SFU rate, whichever is largest), and
+bound (the least time the card could take for its work on these inputs,
+``splatbench/roofline.py``'s ``least_seconds`` at that file's H100 SXM
+peaks: bytes over the memory rate, FP32 operations over the FP32 rate, or
+special-function operations over the SFU rate, whichever is largest;
+``bound_by`` names it ``bytes``, ``fp32`` or ``sfu``), and
 the surface frame's figures under ``surface_*`` keys;
 the last line is ``{"ok": true, "device": {...}}``.  Exits non-zero with no
 result line when no CUDA device is available.  The port imports no JAX.
@@ -180,6 +182,11 @@ import sys
 import tempfile
 import time
 import warnings
+
+from splatbench.roofline import (ALPHA_OPS, K2_KEPT_OPS, K2_KEPT_SFU,
+                                 K3_KEPT_OPS, K3_KEPT_SFU, K4_KEPT_OPS,
+                                 K4_KEPT_SFU, PROJ_OPS, PROJ_SFU,
+                                 SFU_OPS_PER_S, least_seconds)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FITTED_PLY = os.path.join(ROOT, "tests", "data", "fitted_20k.ply")
@@ -233,43 +240,18 @@ SUBTILE_ATOL = 1e-6
 # phase 1b: the projection front end's kernel and its plain version at
 # these frames (N, scene), each @1920x1080 from (0, 0, 4); bytes a gaussian
 # of its full and count-only forms (59 f32 rows in and six int32 fields
-# and 11 f32 rows out; rows 0-10 in), FP32 and SFU operations a gaussian
-# (splatbench/roofline.py's projection)
+# and 11 f32 rows out; rows 0-10 in); its operations are the yardstick's
+# projection
 FRONT_FRAMES = ((N_BIG, "random"), (N_BIG, "surface"), (3_000_000, "surface"))
 FRONT_BYTES, FRONT_COUNT_BYTES = 236 + 68, 44
-FRONT_OPS, FRONT_SFU = 360, 6
 # phase 11: front ends timed with CUDA events, profiled, and packs timed
 PROJ_REPS = 20
 PROFILE_REPS = 5
 PACK_REPS = 5
-# The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
-# HBM bytes per second, and FP32 operations per second outside the tensor
-# cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# Special-function unit results per SM per clock at compute capability 9.0
-# (CUDA C++ Programming Guide, arithmetic instruction throughput), at the
-# SM clock nvidia-smi reports as the card's maximum.
-SFU_OPS_PER_SM_CLOCK = 16
-# Operations to evaluate one pair's alpha at one pixel (K2/K3/K4): dx, dy,
-# three products, the quadratic form (3 mul + 2 add), the opacity product,
-# the clamp, the alpha_min test, the box test; its expf is one SFU op.
-ALPHA_OPS = 14
-# Per kept (pixel, pair): K3's clamp, weight, 3 colour mul + add, T update
-# (sub, mul) and logT add, with log1pf as one SFU op; K4's clamp, lt_i,
-# min, gc (3 mul + 2 add), weight, dalpha (2 mul, 2 sub), dpower, 6
-# geometry and 3 colour mul + add, D update (mul, add), with log1pf, expf
-# and the division as three SFU ops.
-K3_KEPT_OPS, K3_KEPT_SFU = 10, 1
-K4_KEPT_OPS, K4_KEPT_SFU = 33, 3
-# K2 per kept (pixel, pair): the weight, 3 colour mul + add, the T update
-# (sub, mul); no special-function operation
-K2_KEPT_OPS, K2_KEPT_SFU = 9, 0
 # A short kernel is timed behind this many cycles of a spinning kernel, so
 # that the host has queued every launch before the first one starts
 # (~5 ms; K1 takes less on the card than its wrapper takes on the host).
 HOLD_CYCLES = 10_000_000
-SFU_OPS_PER_S = None      # set by main() from the card
 
 
 def require(cond: bool, msg: str) -> None:
@@ -321,22 +303,12 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, ops: float, sfu: float = 0.0) -> tuple[float, str]:
-    """The least milliseconds the card could take: the largest of the
-    bytes over the memory rate, the FP32 operations over the FP32 rate and
-    the special-function operations over the SFU rate."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(ops / FP32_OPS_PER_S, sfu / SFU_OPS_PER_S) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations")
-
-
 def kernel_record(name, source, replaces, err, ms, plain_ms, nbytes, ops,
                   sfu=0.0):
-    bound_ms, bound_by = bound(nbytes, ops, sfu)
+    bound_s, bound_by = least_seconds(nbytes, ops, sfu)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
             "bound_by": bound_by, "library_ms": None}
 
 
@@ -424,8 +396,8 @@ def check_raster(bins, h, w, cfg, plain_reps: int) -> dict:
                         ALPHA_OPS * work["box3"] + K2_KEPT_OPS * work["kept3"],
                         work["box3"] + K2_KEPT_SFU * work["kept3"])
     # the bound of alpha evaluations alone at every walked (pixel, pair)
-    rec["alpha_only_bound_ms"], _ = bound(
-        0, ALPHA_OPS * work["walked"] * cfg.tile_w * cfg.tile_h)
+    rec["alpha_only_bound_ms"] = least_seconds(
+        0, ALPHA_OPS * work["walked"] * cfg.tile_w * cfg.tile_h, 0)[0] * 1e3
     rec["split_tiles"] = split
     rec["longest_walk"] = int(walked.max())
     print(f"[K2] rasterize_tiles: max abs err {err:.3e} (tol {K2_TOL}); "
@@ -551,8 +523,8 @@ def check_train(bins, h, w, cfg):
                        ALPHA_OPS * work["box4"] + K4_KEPT_OPS * work["kept4"],
                        work["box4"] + K4_KEPT_SFU * work["kept4"])
     # the bound of alpha evaluations alone at every walked (pixel, pair)
-    alpha_only, _ = bound(0, ALPHA_OPS * work["walked"] * cfg.tile_w
-                          * cfg.tile_h)
+    alpha_only = least_seconds(0, ALPHA_OPS * work["walked"] * cfg.tile_w
+                               * cfg.tile_h, 0)[0] * 1e3
     for rec, split in ((k3, split3), (k4, split4)):
         rec["alpha_only_bound_ms"] = alpha_only
         rec["split_tiles"] = split
@@ -630,7 +602,7 @@ def check_front(device) -> tuple[dict, dict]:
         forms = {}
         # the count-only form's bound is its bytes alone (it skips the SH)
         for form, count_only, nbytes, ops, sfu in (
-                ("full", False, FRONT_BYTES, FRONT_OPS, FRONT_SFU),
+                ("full", False, FRONT_BYTES, PROJ_OPS, PROJ_SFU),
                 ("count", True, FRONT_COUNT_BYTES, 0, 0)):
             def call(co=count_only):
                 return project_front(packed, cam, cfg, count_only=co)
@@ -2025,7 +1997,8 @@ def packed_path(device, kernels, sharded_equal: dict) -> dict:
         # an explicit device is a fresh pack each call: five copies
         fig["pack_ms"] = cuda_ms(lambda: scene.pack_device(device), PACK_REPS)
         # each value read once and written once
-        fig["pack_bound_ms"], _ = bound(2 * 4 * PACKED_ROWS * N_BIG, 0)
+        fig["pack_bound_ms"] = least_seconds(
+            2 * 4 * PACKED_ROWS * N_BIG, 0, 0)[0] * 1e3
 
         # ---- the frame's front end on both layouts: the pack's rows as
         # they lie, a GaussianScene packed afresh in each call
@@ -2139,8 +2112,7 @@ def compiled_path(device, kernels) -> dict:
     import splat_tpu_torch as stt
     from splat_tpu_torch.render import graph
     from splat_tpu_torch.render.tiled import render_tiled
-    from splat_tpu_torch.utils.benchmark import (_sweep_fns, chained_bench,
-                                                 profile_frames)
+    from splat_tpu_torch.utils.benchmark import _sweep_fns, chained_bench
 
     expand, raster, front = kernels[0], kernels[1], kernels[4]
 
@@ -2298,17 +2270,20 @@ def compiled_path(device, kernels) -> dict:
                                for k, rs in runs.items()}
         fig["sweep_compile_s"] = [r["compile_s"] for r in runs["compiled"]]
 
-        # ---- device busy and idle share, profiled: 10-frame sweeps
-        for name in ("eager", "compiled"):
-            prof = profile_frames(packed, cam, cfg, frames=10, top=4,
-                                  compiled=name == "compiled")
-            median = statistics.median(fig["ms_per_frame"][name])
-            fig[f"{name}_profile"] = dict(
-                prof, idle_share_of_median_sweep=1.0
-                - prof["device_busy_ms"] / median)
-        # one replay of a 10-frame sweep program, traced: ten K1 and ten
-        # K2 launches on the card, as many as the counters add
-        sweep = graph.capture(_sweep_fns(cfg, 10)[0], packed, cam)
+        # ---- device busy and idle share of a 10-frame sweep program,
+        # eager and captured, profiled; then one replay traced: ten K1 and
+        # ten K2 launches on the card, as many as the counters add
+        frames = 10
+        eager_sweep = _sweep_fns(cfg, frames)[0]
+        sweep = graph.capture(eager_sweep, packed, cam)
+        for name, prog in (("eager", eager_sweep), ("compiled", sweep)):
+            prof = profile_calls(lambda p=prog: p(packed, cam), 1, top=4)
+            busy = prof["busy_ms"] / frames
+            fig[f"{name}_profile"] = {
+                "busy_ms": busy, "device_ops": prof["kernels"] / frames,
+                "top_ms": {k: v / frames for k, v in prof["top_ms"].items()},
+                "idle_share_of_median_sweep": 1.0 - busy / statistics.median(
+                    fig["ms_per_frame"][name])}
         zero_launches(kernels)
         traced = traced_launches(lambda: sweep(packed, cam))
         counted = counted_now()
@@ -2331,7 +2306,7 @@ def compiled_path(device, kernels) -> dict:
               f"{fig['eager_frame_ms']:.2f} ms); replay == eager "
               f"bit for bit {eq}; ms/frame eager {fig['ms_per_frame']['eager']}"
               f", compiled {fig['ms_per_frame']['compiled']}; device busy "
-              f"{ep['device_busy_ms']:.4f} / {cp['device_busy_ms']:.4f} ms, "
+              f"{ep['busy_ms']:.4f} / {cp['busy_ms']:.4f} ms, "
               f"idle share {ep['idle_share_of_median_sweep']:.3f} / "
               f"{cp['idle_share_of_median_sweep']:.3f} (eager / compiled); "
               f"launches a replay {per_replay[kind]}; render() of a "
@@ -2421,15 +2396,11 @@ def main(argv) -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card.splitlines()[0])
-    global SFU_OPS_PER_S
-    max_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout.split()[0])
+    # the bounds take splatbench/roofline.py's H100 SXM peaks, whatever
+    # this card's SM count
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    SFU_OPS_PER_S = SFU_OPS_PER_SM_CLOCK * sms * max_mhz * 1e6
-    print(f"[card] {sms} SMs, max SM clock {max_mhz:.0f} MHz: SFU "
-          f"{SFU_OPS_PER_S:.4e} ops/s")
+    print(f"[card] {sms} SMs; bounds at the H100 SXM's peaks: SFU "
+          f"{SFU_OPS_PER_S:.4e} ops/s (16 x 132 SMs x 1980 MHz)")
     t0 = time.perf_counter()
     _build.library()
     print(f"[build] {_build.library_path().name}: "
