@@ -40,7 +40,7 @@ _SIGNATURES = {
                            _I, _P, _P, _P],
     "splat_rasterize": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I,
                         _I, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
+                        _I, _I, _I, _I, _I, _P],
     "splat_rasterize_train_fwd": [_P, _P, _P, _P, _P, _L, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _F, _F, _I, _F, _I,
                                   _I, _I, _I, _I, _I, _P],

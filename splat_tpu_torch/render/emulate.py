@@ -3,8 +3,9 @@
 The plain versions (``rasterize_tiles_plain``, ``expand_pair_keys_plain``)
 say what a kernel computes; these say how ``csrc/`` computes it where that
 is not obvious to be the same: a warp's strip test, a tile split across the
-blocks of a cluster with their votes, the grouped walk of ``subtile_exit``,
-K1's block-wise owner search.  Each
+blocks of a cluster with their votes, a tile cut into depth segments and
+merged, the grouped walk of ``subtile_exit``, K1's block-wise owner
+search.  Each
 model is written as the device code is, with the sizes read from the CUDA
 sources (:func:`define`).  The CPU tests hold the models against the plain
 versions; the tests on the card hold the kernels against the models on the
@@ -23,6 +24,7 @@ import torch
 from splat_tpu_torch import _build
 from splat_tpu_torch.config import RenderConfig
 from splat_tpu_torch.render.binning import FEATURE_ROWS, TileBins
+from splat_tpu_torch.render.kernels import _untile
 
 
 def define(source: str, name: str) -> int:
@@ -170,6 +172,196 @@ def split_composite(bins: TileBins, h: int, w: int, cfg: RenderConfig,
             out.append(torch.clamp(1.0 - t_all, 0.0, 1.0)[:, None])
         img[y0:y0 + th, x0:x0 + tw] = torch.cat(out, 1).reshape(th, tw, nchan)
     return img[:h, :w], walked, stopped
+
+
+# ---- csrc/raster.cu: a tile cut into depth segments -------------------
+
+
+def segment_frame(specs, chunk: int = 64, tile: int = 16, h: int = 13,
+                  seed: int = 11, device="cpu"):
+    """One row of ``tile`` x ``tile`` tiles of an h x (len(specs) * tile)
+    image (pixels past the edge vote too), tile t's pairs built from
+    ``specs[t]``: ``n`` pairs, and ``flats``, the offsets from the tile's
+    first batch start (its first pair rounded down to a multiple of
+    ``chunk``) of the last pair of each run of 8 flat splats of alpha 0.5,
+    a run that takes every pixel's T below 2^-8 < 1/255.  The other pairs
+    are compact splats centred in the tile's left half that never reach its
+    right half, one in ``dense`` (default 4) visible (opacity 0.05-0.6),
+    the rest below alpha_min: the left pixels saturate, the right ones only
+    at a flat run.  Returns (bins, h, w, config)."""
+    rng = np.random.default_rng(seed)
+    counts = [sp["n"] for sp in specs]
+    n = sum(counts)
+    feats = np.zeros((len(FEATURE_ROWS), n), np.float32)
+    k = 0
+    for t, sp in enumerate(specs):
+        c = sp["n"]
+        x0 = t * tile
+        feats[0, k:k + c] = x0 + rng.uniform(0, tile / 2 - 4, c)     # cx
+        feats[1, k:k + c] = rng.uniform(0, tile, c)                  # cy
+        a = -rng.uniform(0.35, 1.0, c)
+        feats[2, k:k + c] = a                                        # a2
+        feats[4, k:k + c] = a                                        # c2
+        feats[5:8, k:k + c] = rng.uniform(0, 1, (3, c))
+        vis = rng.integers(0, sp.get("dense", 4), c) == 0
+        feats[8, k:k + c] = np.where(vis, rng.uniform(0.05, 0.6, c), 0.001)
+        b0 = k - k % chunk
+        for off in sp.get("flats", ()):
+            lo, hi = b0 + off - 7, b0 + off + 1
+            if not k <= lo < hi <= k + c:
+                raise ValueError(f"tile {t}: flat run {off} outside the tile")
+            feats[2:5, lo:hi] = 0.0
+            feats[8, lo:hi] = 0.5
+        k += c
+    feats[9:11] = np.inf
+    edges = np.cumsum((0,) + tuple(counts)).astype(np.int32)
+    dev = torch.device(device)
+    bins = TileBins(features=torch.from_numpy(feats).to(dev),
+                    tile_start=torch.from_numpy(edges[:-1].copy()).to(dev),
+                    tile_end=torch.from_numpy(edges[1:].copy()).to(dev),
+                    ranks=torch.arange(n, device=dev),
+                    num_pairs=torch.tensor(n, device=dev),
+                    overflow=torch.tensor(0, device=dev),
+                    tiles_x=len(specs), tiles_y=1, num_gaussians=n)
+    cfg = RenderConfig(chunk=chunk, tile_px=tile, sigma_cutoff=math.inf,
+                       background=(0.1, 0.3, 0.5))
+    return bins, h, tile * len(specs), cfg
+
+
+def _walk_rows(feats, px, py, lo, hi, cfg: RenderConfig, col=None,
+               tr=None):
+    """``walk_pairs`` for several pixel sets at once: row g of px, py
+    ((G, P) f32) walks the pairs [lo[g], hi[g]) in the batches of ``chunk``
+    that start at absolute multiples of it, from (col, tr) (default C = 0,
+    T = 1), and stops after the batch at which all its pixels have T <
+    alpha_min.  Returns col (G, P, 3), tr (G, P) and where each walk
+    ended (G,), int64."""
+    g, p = px.shape
+    kp = feats.shape[1]
+    col = torch.zeros((g, p, 3)) if col is None else col.clone()
+    tr = torch.ones((g, p)) if tr is None else tr.clone()
+    alive = hi > lo
+    end = lo.clone()
+    use_bbox = math.isfinite(cfg.sigma_cutoff)
+    for i in range(int((hi - lo).max()) if g else 0):
+        k = lo + i
+        v = alive & (k < hi)
+        if not bool(v.any()):
+            break
+        f = feats[:, k.clamp(0, kp - 1)]
+        cx, cy, a2, b2, c2, r, gg, b, op, rx2, ry2 = (
+            f[q][:, None] for q in range(f.shape[0]))
+        dx = px - cx
+        dy = cy - py
+        dx2 = dx * dx
+        dy2 = dy * dy
+        power = a2 * dx2 + c2 * dy2 + b2 * (dx * dy)
+        alpha = torch.clamp(op * torch.exp(power), max=cfg.alpha_clamp)
+        keep = (alpha >= cfg.alpha_min) & v[:, None]
+        if use_bbox:
+            keep = keep & (dx2 <= rx2) & (dy2 <= ry2)
+        wgt = (alpha * tr)[..., None]
+        rgb = torch.stack([r, gg, b], dim=-1)
+        col = torch.where(keep[..., None], col + wgt * rgb, col)
+        tr = torch.where(keep, tr * (1.0 - alpha), tr)
+        last = v & (((k + 1) % cfg.chunk == 0) | (k + 1 == hi))
+        end = torch.where(last, k + 1, end)
+        alive = alive & ~(last & (tr.amax(dim=1) < cfg.alpha_min))
+    return col, tr, end
+
+
+def segment_composite(bins: TileBins, h: int, w: int, cfg: RenderConfig,
+                      seg_len: int, nseg):
+    """K2 as ``raster_segment`` runs the tiles cut into depth segments (CPU
+    tensors), and the others as whole walks: tile t with nseg[t] > 0
+    segments of ``seg_len`` pairs (as ``plan._segments`` cuts them)
+    composites each from T = 1, C = 0 with the batch-granular stop; the
+    merge folds them front to back, C += T * C_j, T *= T_j, up to the first
+    segment k after which every pixel has T < alpha_min, takes segment 0's
+    own walk where k = 0, and walks segment k again from the merged prefix
+    where 0 < k < nseg[t].  Returns the image, the pairs each tile walked
+    before its exit (as ``rasterize_tiles_plain(return_walked=True)``), and
+    per tile the merge's k (nseg[t] where the tile never exits, -1 for a
+    whole walk), whether segment k was walked again, and its segments'
+    ends (each segment's own stop).  Which cluster merges, and when (the
+    kernel's rounds, lock and skipped segments), changes no operation: the
+    model merges each tile once, in order."""
+    tw, th, chunk = cfg.tile_w, cfg.tile_h, cfg.chunk
+    nt, p = bins.tiles_x * bins.tiles_y, tw * th
+    feats = bins.features
+    s = bins.tile_start.long()
+    e = bins.tile_end.long()
+    base = s - s % chunk
+    nseg = torch.as_tensor(nseg, dtype=torch.int64)
+    lin = torch.arange(p)
+    tid = torch.arange(nt)
+    pxf = ((tid % bins.tiles_x)[:, None] * tw + lin % tw).float()
+    pyf = ((tid // bins.tiles_x)[:, None] * th + lin // tw).float()
+    # one row a whole tile or a segment: (tile, segment, lo, hi)
+    rows = []
+    for t in range(nt):
+        for j in range(max(int(nseg[t]), 1)):
+            if nseg[t] == 0:
+                rows.append((t, 0, int(s[t]), int(e[t])))
+            else:
+                rows.append((t, j, max(int(s[t]), int(base[t]) + j * seg_len),
+                             min(int(e[t]),
+                                 int(base[t]) + (j + 1) * seg_len)))
+    rt = torch.tensor([r[0] for r in rows], dtype=torch.int64)
+    lo = torch.tensor([r[2] for r in rows], dtype=torch.int64)
+    hi = torch.tensor([r[3] for r in rows], dtype=torch.int64)
+    col, tr, end = _walk_rows(feats, pxf[rt], pyf[rt], lo, hi, cfg)
+    out_c = torch.zeros((nt, p, 3))
+    out_t = torch.ones((nt, p))
+    walked = torch.zeros(nt, dtype=torch.int64)
+    ks = torch.full((nt,), -1, dtype=torch.int64)
+    again = torch.zeros(nt, dtype=torch.bool)
+    seg_ends = []
+    redo = []
+    for t in range(nt):
+        mine = torch.nonzero(rt == t).flatten().tolist()
+        seg_ends.append(end[mine].tolist())
+        n = int(nseg[t])
+        if n == 0:
+            out_c[t], out_t[t] = col[mine[0]], tr[mine[0]]
+            walked[t] = end[mine[0]] - s[t]
+            continue
+        c, tt, k = torch.zeros((p, 3)), torch.ones(p), n
+        for j, r in enumerate(mine):
+            c = c + tt[:, None] * col[r]
+            tt = tt * tr[r]
+            if bool((tt < cfg.alpha_min).all()):
+                k = j
+                break
+        ks[t] = k
+        if k == 0:
+            out_c[t], out_t[t] = col[mine[0]], tr[mine[0]]
+            walked[t] = end[mine[0]] - s[t]
+            continue
+        c, tt = torch.zeros((p, 3)), torch.ones(p)
+        for r in mine[:k]:
+            c = c + tt[:, None] * col[r]
+            tt = tt * tr[r]
+        out_c[t], out_t[t] = c, tt
+        if k == n:
+            walked[t] = e[t] - s[t]
+        else:
+            again[t] = True
+            redo.append((t, mine[k]))
+    if redo:
+        tt_ = torch.tensor([t for t, _ in redo])
+        rr = torch.tensor([r for _, r in redo])
+        c2, t2, end2 = _walk_rows(feats, pxf[tt_], pyf[tt_], lo[rr], hi[rr],
+                                  cfg, out_c[tt_], out_t[tt_])
+        out_c[tt_], out_t[tt_] = c2, t2
+        walked[tt_] = end2 - s[tt_]
+    bg = torch.tensor(cfg.background, dtype=torch.float32)
+    out = [torch.clamp(out_c + out_t[..., None] * bg, 0.0, 1.0)]
+    if cfg.alpha_channel:
+        out.append(torch.clamp(1.0 - out_t, 0.0, 1.0)[..., None])
+    img = _untile(torch.cat(out, dim=-1), bins.tiles_y, bins.tiles_x, th, tw,
+                  h, w)
+    return img, walked, {"k": ks, "again": again, "seg_ends": seg_ends}
 
 
 # ---- csrc/raster.cu: subtile_exit's grouped walk ------------------------

@@ -23,12 +23,21 @@ stopped, less than its T: under 1e-6 at the default alpha_min.
 The card runs the hand-written kernel ``csrc/raster.cu``, which splits
 heavy tiles by pixels across the blocks of a cluster (the work list of
 ``render/plan.py``, built on the card just before the launch) and lets
-each warp skip the pairs whose box misses its pixel strip; CPU tensors take :func:`rasterize_tiles_plain`, which performs
-the same float operations in the same order, so the two differ only where
-the libraries' rounding does.  On a grouped tile the kernel lays the pixels
-out group by group, so that a warp holds whole groups (or, at fewer than 4
-pixels a thread, a share of one) and skips the pairs of its stopped groups
-while the block goes on staging batches for the others.
+each warp skip the pairs whose box misses its pixel strip; CPU tensors take
+:func:`rasterize_tiles_plain`, which performs the same float operations in
+the same order, so the two differ only where the libraries' rounding does,
+but for one departure: in a frame with heavy tiles the kernel cuts every
+long tile by depth into segments (``plan._segments``), composites each
+from T = 1, C = 0 and merges them front to back (C += T * C_k,
+T *= T_k) up to the segment that holds the tile's exit, which it walks
+again from the merged prefix.  There the sum over the segments before it
+is reassociated, C_0 + T_0 * (C_1 + ...) where the plain version adds
+pair by pair (within 1e-6 of it on ``render/emulate.py``'s frames); the
+exit batch is the plain version's, since the whole-tile exit is decided
+batch by batch on the merged prefix.  On a grouped tile the kernel lays
+the pixels out group by group, so that a warp holds whole groups (or, at
+fewer than 4 pixels a thread, a share of one) and skips the pairs of its
+stopped groups while the block goes on staging batches for the others.
 The TPU kernel's prefix-product/MXU machinery is not ported, nor is the
 phase compaction it runs ``subtile_exit`` as (groups checked every 8
 windows, the last 4 live ones compacted and walked on until all have
@@ -232,35 +241,50 @@ def rasterize_tiles(bins: TileBins, h: int, w: int,
     grid = group_grid(tw, th, config.subtile_exit)
     group_cols = grid[1] if grid else 0
     heavy_pairs = min(config.subtile_heavy_pairs, (1 << 31) - 1)
-    # the launch's work list, built on the card: tile ids, then the count
-    # of split tiles
-    work = torch.empty((nt + 1,), dtype=torch.int32, device=dev)
+    # the launch's work list, built on the card (csrc/raster.cu's
+    # splat_rasterize lays it out: tile ids, the count of split tiles, the
+    # segment words, then the heavy tiles walked whole, the cut tiles, the
+    # segment rounds and each tile's merge state) and the depth segments'
+    # scratch, sized from what a captured frame fixes (the tiles, the card)
+    slots = plan._slots(dev)
+    max_ent, max_segs = plan._k2_capacity(nt, ppt, groups, slots,
+                                          not group_cols)
+    work = torch.empty((6 * nt + 9 + plan.SEG_ROUNDS + max_ent + max_segs,),
+                       dtype=torch.int32, device=dev)
+    scratch = torch.empty((max_segs * THREADS * ppt * 4,),
+                          dtype=torch.float32, device=dev)
     fn = _build.library().splat_rasterize
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(bins.tile_start.data_ptr(), bins.tile_end.data_ptr(),
-                 work.data_ptr(), work.data_ptr() + 4 * nt,
+                 work.data_ptr(), scratch.data_ptr() if max_segs else None,
                  feats.data_ptr(), feats.shape[1], out.data_ptr(), h, w, tw,
                  th, bins.tiles_x, nt, config.chunk, config.alpha_clamp,
                  config.alpha_min, bg[0], bg[1], bg[2], nchan,
                  int(math.isfinite(config.sigma_cutoff)), ppt, groups,
-                 plan._slots(dev), plan.SPLIT_MIN_PAIRS, group_cols,
-                 heavy_pairs, stream)
+                 slots, plan.SPLIT_MIN_PAIRS, group_cols, heavy_pairs,
+                 plan.SEG_DIV, plan.LIGHT_DIV, max_ent, max_segs, stream)
     _build.check(err, "rasterize_tiles")
     rasterize_tiles.launches += 1
     if group_cols:
         rasterize_tiles.subtile_launches += 1
-    rasterize_tiles.split_tiles = work[nt:]
     rasterize_tiles.tile_order = work[:nt]
+    rasterize_tiles.split_tiles = work[nt:nt + 1]
+    # the segment words 3 and 4
+    rasterize_tiles.segments = work[nt + 4:nt + 6]
     return out
 
 
 rasterize_tiles.launches = 0
 # of those, the launches of the variant with the per-group exit
 rasterize_tiles.subtile_launches = 0
-# the last launch's count of split tiles, a (1,) int32 tensor on the card
+# the last launch's count of split tiles (the heavy ones, split by pixels),
+# a (1,) int32 tensor on the card
 rasterize_tiles.split_tiles = None
 # and the order in which its blocks took the tiles, (T,) int32
 rasterize_tiles.tile_order = None
+# and its depth segments, a (2,) int32 tensor on the card: the segments
+# planned and, of them, those walked again at their tile's exit
+rasterize_tiles.segments = None
 graph.count_replays(rasterize_tiles, ("launches", "subtile_launches"),
-                    last=("split_tiles", "tile_order"))
+                    last=("split_tiles", "tile_order", "segments"))

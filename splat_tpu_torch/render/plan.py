@@ -1,11 +1,17 @@
 """The raster kernels' work list (K2, K3, K4): which tiles are split across
-blocks, and in which order the tiles are taken.
+blocks, and in which order the tiles are taken; for K2, which tiles are cut
+into depth segments.
 
 A pixel's recurrence over its tile's pairs is serial, so with one block per
 tile the longest walk of a frame is one block's work while the other SMs
 drain.  The kernels therefore split a heavy tile by pixels across
 ``_split(ppt)`` blocks (``csrc/raster_common.cuh::work_of``), take the heavy
-tiles first and the light ones after them, longest first.
+tiles first and the light ones after them, longest first.  That split
+leaves a heavy tile's walk as long as the tile, and a light tile walked by
+one block at several pixels a thread is slower a pair still: in a frame
+with heavy tiles K2 also cuts every long tile by depth into segments
+(:func:`_segments`), each walked by a cluster of its own and merged front
+to back (``csrc/raster.cu``).
 
 On the card the list is built by one small kernel
 (``csrc/raster_common.cuh::raster_plan_kernel``) that each of the three C
@@ -32,6 +38,19 @@ BLOCKS_PER_SM = 2
 # the plan kernel orders tiles by a counting sort over this many buckets of
 # walk length (csrc/raster_common.cuh's PLAN_BUCKETS)
 PLAN_BUCKETS = 1024
+# K2 cuts a tile into depth segments of cap // SEG_DIV pairs, rounded up to
+# a multiple of chunk (cap: the plan's heavy-tile threshold), in a frame
+# that has heavy tiles: a heavy tile where it holds more than two
+# segments' worth of pairs, a light one where it holds more than a
+# LIGHT_DIV-th of a segment's.  Swept on an H100 at the surface-3m orbit's
+# frames (K2 ms a frame at five poses, mean): SEG_DIV 2: 2.70, 4: 2.33,
+# 6: 2.22, 8: 2.18, 12: 2.18, 16: 2.23; LIGHT_DIV 4, 8, 16 at SEG_DIV 8:
+# 2.17, 2.18, 2.18 (the unsegmented kernel: 4.45)
+SEG_DIV = 8
+LIGHT_DIV = 8
+# a tile is cut into fewer segments than this (csrc/raster_common.cuh's
+# SEG_ROUNDS), or none is cut
+SEG_ROUNDS = 1024
 
 
 def _split(ppt: int) -> int:
@@ -90,3 +109,54 @@ def _block_work(order, nheavy, split: int):
         elif nh + (q - nh) * split + r < nt:
             work.append((int(order[nh + (q - nh) * split + r]), 0, 1))
     return work
+
+
+def _segment_len(cap: int, chunk: int) -> int:
+    """K2's segment length for the plan's ``cap``: ``cap // SEG_DIV``
+    rounded up to a multiple of ``chunk``."""
+    return -(-max(cap // SEG_DIV, 1) // chunk) * chunk
+
+
+def _segments(start, end, split: int, slots: int, chunk: int):
+    """Plain version of K2's depth segments (``raster_common.cuh``'s
+    ``plan_segments``): the segment length L and each tile's segments,
+    (T,) int64, 0 for a tile walked whole.  Only a frame with heavy tiles
+    (as :func:`_plan_keys` decides) is cut: a heavy tile of more than 2 * L
+    pairs, and a light one of more than L // LIGHT_DIV, takes
+    ceil((end - base) / L) segments, base being its start rounded down to
+    a multiple of ``chunk``; segment j holds its pairs [base + j * L,
+    base + (j + 1) * L)."""
+    s, e = start.to(torch.int64), end.to(torch.int64)
+    walk = torch.clamp(e - s, min=0)
+    cap = max(SPLIT_MIN_PAIRS, int(walk.sum()) // slots)
+    seg = _segment_len(cap, chunk)
+    heavy = _plan_keys(walk, split, slots) < PLAN_BUCKETS
+    over = torch.where(heavy, 2 * seg, max(seg // LIGHT_DIV, 1))
+    base = s - s % chunk
+    # a frame without heavy tiles is left whole: cut as the rule cuts the
+    # others, the random-1m orbit's frames (no tile above 5.8k pairs, L =
+    # 1024) took ~2,580 segments and K2 0.50 -> 0.73 ms on an H100 (four
+    # poses of the cell's orbit)
+    cut = (e - s > over) & bool(heavy.any())
+    return seg, torch.where(cut, -((base - e) // seg), torch.zeros_like(s))
+
+
+def _k2_capacity(num_tiles: int, ppt: int, groups: int, slots: int,
+                 segments: bool) -> tuple[int, int]:
+    """(clusters, segments): the clusters of heavy tiles and segments, and
+    the segments' (C, T) scratch slots, that K2's work list is sized for.
+    Fewer than ``slots`` tiles are heavy, each over the frame's pairs /
+    slots; a cut tile takes fewer than pairs / L + 2 segments, with L at
+    least about cap / SEG_DIV >= pairs / (SEG_DIV * slots): fewer than
+    (SEG_DIV + 1) * slots + 2 * num_tiles in all (the tiles' term is the
+    tighter of the two: the cut light tiles alone may number up to
+    LIGHT_DIV * SEG_DIV * slots).  The plan cuts no tile of a frame whose
+    segments would not fit, so this is the worst frame's size: 6,456
+    slots of 16 KB at 1080p on an H100, which each captured frame's graph
+    pool holds (measured: 719 -> 826 MB a key at the surface-3m orbit,
+    325 -> 432 MB at the random-1m one).  None where a tile takes several
+    blocks (``groups`` > 1) or one block takes a heavy tile whole."""
+    if groups > 1 or _split(ppt) == 1:
+        return 0, 0
+    segs = (SEG_DIV + 1) * slots + 2 * num_tiles if segments else 0
+    return min(num_tiles, slots) + segs, segs

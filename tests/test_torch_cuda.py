@@ -278,6 +278,91 @@ def test_raster_subtile_staggered_groups_equal_model(dev):
     assert float((img.cpu() - img_m).abs().max()) <= 1e-4
 
 
+def _segment_specs(seg):
+    """render/emulate.py's segment_frame tiles, with the exit placed at
+    offsets of the card's segment length ``seg``: in the first batch, never,
+    inside a middle segment, on a segment border, and with later segments
+    that stop on their own."""
+    return [dict(n=10200, flats=[7]), dict(n=10000),
+            dict(n=11000, flats=[2 * seg + seg // 2 + 13]),
+            dict(n=10500, flats=[2 * seg - 1]),
+            dict(n=12000, flats=[seg + 300] + [
+                j * seg + 37 * j + 20 for j in range(2, 6)])]
+
+
+@pytest.mark.parametrize("chunk,rgba", [(64, True), (128, False)])
+def test_raster_kernel_segments_equal_plain_and_model(dev, chunk, rgba):
+    """Tiles longer than two depth segments: K2 cuts each into segments,
+    walks them in parallel and merges them, against the plain serial walk
+    and the model of the segmented walk; the segments counter reads what
+    the model planned and walked again."""
+    seg = plan._segment_len(plan.SPLIT_MIN_PAIRS, chunk)
+    specs = _segment_specs(seg)
+    kw = dict(chunk=chunk, tile=32, h=30)
+    bins, h, w, cfg = emulate.segment_frame(specs, device=dev, **kw)
+    cfg = dataclasses.replace(cfg, alpha_channel=rgba)
+    seg_p, nseg = plan._segments(bins.tile_start, bins.tile_end,
+                                 plan._split(4), plan._slots(dev), chunk)
+    assert seg_p == seg and bool((nseg > 2).all())
+    img = rasterize_tiles(bins, h, w, cfg)
+    planned, again = rasterize_tiles.segments.tolist()
+    img_p, walked = rasterize_tiles_plain(bins, h, w, cfg,
+                                          return_walked=True)
+    torch.cuda.synchronize()
+    assert img.shape == img_p.shape == (h, w, 4 if rgba else 3)
+    assert float((img - img_p).abs().max()) <= 1e-4
+    cpu_bins = emulate.segment_frame(specs, **kw)[0]
+    img_m, walked_m, info = emulate.segment_composite(
+        cpu_bins, h, w, cfg, seg, nseg.cpu())
+    assert torch.equal(walked_m, walked.cpu())
+    assert float((img.cpu() - img_m).abs().max()) <= 1e-4
+    assert planned == int(nseg.sum()) and again == int(info["again"].sum())
+    assert info["k"].tolist()[:2] == [0, int(nseg[1])] and again == 3
+    # every tile is heavy, as K3 plans it too: its work list as before
+    rasterize_train_fwd(bins, h, w, cfg)
+    walk = (bins.tile_end - bins.tile_start).long()
+    assert int(rasterize_train_fwd.split_tiles) == int(plan._tile_plan(
+        walk, plan._split(4), plan._slots(dev))[1]) == len(specs)
+
+
+def test_raster_kernel_plans_no_segment_without_heavy_tiles(dev):
+    cfg = stt.RenderConfig()
+    h, w = 200, 300
+    bins = binning.build_tile_bins(_frame(dev, cfg, h, w, n=5000), h, w, cfg)
+    _, nseg = plan._segments(bins.tile_start, bins.tile_end, plan._split(4),
+                             plan._slots(dev), cfg.chunk)
+    assert int(nseg.sum()) == 0
+    rasterize_tiles(bins, h, w, cfg)
+    assert rasterize_tiles.segments.tolist() == [0, 0]
+
+
+def test_raster_kernel_segments_replay_eager_bit_for_bit(dev):
+    """K2 with depth segments captured into a CUDA graph: each replay (the
+    plan zeroes the tiles' counters of finished segments anew) equals the
+    eager launch bit for bit, and the counter reads the graph's."""
+    seg = plan._segment_len(plan.SPLIT_MIN_PAIRS, 64)
+    bins, h, w, cfg = emulate.segment_frame(_segment_specs(seg), tile=32,
+                                            h=30, device=dev)
+    want = rasterize_tiles(bins, h, w, cfg)
+    counts = rasterize_tiles.segments.tolist()
+    assert counts[0] > 0 and counts[1] > 0
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rasterize_tiles(bins, h, w, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = rasterize_tiles(bins, h, w, cfg)
+    captured = rasterize_tiles.segments
+    for _ in range(3):
+        got.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert captured.tolist() == counts
+
+
 @pytest.mark.parametrize("dup", [16.0, 1.0], ids=["room", "overflow"])
 def test_expand_cull_kernel_equals_plain(dev, dup):
     """K1's cull variant against its plain version on big splats (many

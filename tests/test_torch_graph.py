@@ -136,7 +136,7 @@ def test_every_kernel_wrapper_registers_its_counters():
         project_front: (("launches", "count_launches"), ()),
         expand_pair_keys: (("launches", "cull_launches"), ()),
         rasterize_tiles: (("launches", "subtile_launches"),
-                          ("split_tiles", "tile_order")),
+                          ("split_tiles", "tile_order", "segments")),
         rasterize_train_fwd: (("launches",), ("split_tiles",)),
         rasterize_train_bwd: (("launches",), ())}
     for fn, (attrs, last) in got.items():

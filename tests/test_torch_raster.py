@@ -115,6 +115,120 @@ def test_split_tile_composite_equals_unsplit(chunk, alpha_channel):
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6)
 
 
+# K2's depth segments: a row of tiles of 10-12k pairs, each cut into
+# segments of SEG_L pairs, with the tile's exit (a run of flat splats, at
+# these offsets from its first batch start) placed in each way the merge
+# must handle
+SEG_L = 2048
+_SEGMENT_CASES = {
+    "exit_in_first_batch": dict(n=10200, flats=[7]),
+    "never_exits": dict(n=10000),
+    "exit_inside_middle_segment": dict(n=11000,
+                                       flats=[2 * SEG_L + SEG_L // 2 + 13]),
+    "exit_on_segment_border": dict(n=10500, flats=[2 * SEG_L - 1]),
+    "later_segments_saturate": dict(n=12000, flats=[SEG_L + 300] + [
+        j * SEG_L + 37 * j + 20 for j in range(2, 6)]),
+}
+
+
+@pytest.fixture(scope="module")
+def segment_runs():
+    bins, h, w, cfg = emulate.segment_frame(list(_SEGMENT_CASES.values()))
+    s, e = bins.tile_start.long(), bins.tile_end.long()
+    nseg = -((s - s % cfg.chunk - e) // SEG_L)     # every tile cut
+    want, walked = rasterize_tiles_plain(bins, h, w, cfg, return_walked=True)
+    got, got_walked, info = emulate.segment_composite(bins, h, w, cfg, SEG_L,
+                                                      nseg)
+    return dict(bins=bins, cfg=cfg, nseg=nseg, want=want, walked=walked,
+                got=got, got_walked=got_walked, info=info)
+
+
+@pytest.mark.parametrize("case", list(_SEGMENT_CASES))
+def test_segmented_walk_model_equals_plain(segment_runs, case):
+    """The model of a tile cut into depth segments (each walked from T = 1
+    with its own stop, merged front to back, the exit segment walked again
+    from the merged prefix) against the serial walk: the same pairs walked
+    and the image within 1e-6, wherever the exit falls."""
+    r = segment_runs
+    t = list(_SEGMENT_CASES).index(case)
+    cfg, info = r["cfg"], r["info"]
+    s = int(r["bins"].tile_start[t])
+    e = int(r["bins"].tile_end[t])
+    base, n = s - s % cfg.chunk, int(r["nseg"][t])
+    walked = int(r["walked"][t])
+    assert n > 2
+    assert int(r["got_walked"][t]) == walked
+    x = slice(t * cfg.tile_w, (t + 1) * cfg.tile_w)
+    np.testing.assert_allclose(r["got"][:, x].numpy(),
+                               r["want"][:, x].numpy(), atol=1e-6)
+    k, again = int(info["k"][t]), bool(info["again"][t])
+    ends = info["seg_ends"][t]
+    if case == "exit_in_first_batch":      # segment 0's own stop
+        assert (k, again, walked) == (0, False, cfg.chunk)
+    elif case == "never_exits":            # every segment merged
+        assert (k, again, walked) == (n, False, e - s)
+        assert ends == [min(e, base + (j + 1) * SEG_L) for j in range(n)]
+    elif case == "exit_inside_middle_segment":
+        assert (k, again) == (2, True)
+        assert base + 2 * SEG_L < s + walked < base + 3 * SEG_L
+    elif case == "exit_on_segment_border":
+        assert (k, again, s + walked) == (1, True, base + 2 * SEG_L)
+    else:                                  # later segments stop early
+        assert (k, again) == (1, True)
+        assert all(ends[j] < base + (j + 1) * SEG_L for j in range(1, n))
+
+
+def test_segment_plan_cuts_only_long_tiles():
+    """plan._segments: L a multiple of chunk near cap / SEG_DIV; in a frame
+    with heavy tiles, a heavy tile cut where it holds more than 2 L pairs
+    and a light one where it holds more than L / LIGHT_DIV, into segments
+    whose borders are batch borders and that cover its range; and K2's
+    scratch and work list sized for every frame (plan._k2_capacity)."""
+    from splat_tpu_torch.render import plan
+
+    rng = np.random.default_rng(3)
+    for trial in range(40):
+        nt = int(rng.integers(50, 2100))
+        slots = int(rng.choice([40, 264]))
+        chunk = int(rng.choice([32, 64, 128, 1100]))
+        load = rng.integers(0, 3000, nt)
+        big = rng.random(nt) < rng.choice([0.0, 0.01, 0.05])
+        load = np.where(big, rng.integers(3000, 130_000, nt), load)
+        start = torch.tensor(np.cumsum(np.r_[rng.integers(0, 99), load[:-1]]))
+        end = start + torch.tensor(load)
+        seg, n = plan._segments(start, end, 4, slots, chunk)
+        pairs = end - start
+        cap = max(plan.SPLIT_MIN_PAIRS, int(pairs.sum()) // slots)
+        assert seg % chunk == 0 and cap // plan.SEG_DIV <= seg
+        assert seg < cap // plan.SEG_DIV + chunk
+        heavy = pairs > cap
+        want = torch.where(heavy, pairs > 2 * seg,
+                           pairs > seg // plan.LIGHT_DIV) & bool(heavy.any())
+        assert torch.equal(n > 0, want)
+        for t in torch.nonzero(n).flatten().tolist():
+            s, e, b = int(start[t]), int(end[t]), int(start[t]) % chunk
+            lo = [max(s, s - b + j * seg) for j in range(int(n[t]))]
+            hi = [min(e, s - b + (j + 1) * seg) for j in range(int(n[t]))]
+            assert lo[0] == s and hi[-1] == e and lo[1:] == hi[:-1]
+            assert all(x % chunk == 0 for x in lo[1:])
+            assert all(a < b for a, b in zip(lo, hi))
+        ent, segs = plan._k2_capacity(nt, 4, 1, slots, True)
+        assert int(n.sum()) <= segs
+        # a cluster for each heavy tile or segment of one, and for each
+        # segment of a light tile
+        assert int(n[heavy].clamp(min=1).sum() + n[~heavy].sum()) <= ent
+    # a balanced frame (random-1m's loads: cap 2.02M / 264 = 7650) is cut
+    # nowhere
+    seg, n = plan._segments(torch.arange(2040) * 990,
+                            torch.arange(1, 2041) * 990, 4, 264, 128)
+    assert seg == plan._segment_len(7650, 128) and int(n.sum()) == 0
+    assert plan._k2_capacity(2040, 4, 2, 264, True) == (0, 0)
+    assert plan._k2_capacity(2040, 1, 1, 264, True) == (0, 0)
+    assert plan._k2_capacity(2040, 4, 1, 264, False) == (264, 0)
+    assert plan.SEG_ROUNDS == emulate.define("raster_common.cuh",
+                                             "SEG_ROUNDS")
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_strip_skip_drops_only_pairs_no_pixel_keeps(seed):
     rng = np.random.default_rng(seed)
