@@ -307,12 +307,55 @@ def densify_and_prune(raw: RawParams, grad_mean, *,
                       max_gaussians: int | None = None,
                       pad_multiple: int = 256,
                       seed: int = 0) -> tuple[RawParams, dict]:
-    """Adaptive density control, host-side in NumPy exactly as
-    ``splat_tpu.train.densify_and_prune``: clone small and split large
-    splats whose mean positional-gradient norm exceeds ``grad_threshold``,
-    prune those below ``min_opacity``, and pad to ``pad_multiple`` with
-    dead splats.  Returns the new parameters on ``raw``'s device and the
-    round's counts."""
+    """Adaptive density control: clone small and split large splats whose
+    mean positional-gradient norm exceeds ``grad_threshold``, prune those
+    below ``min_opacity``, and pad to ``pad_multiple`` with dead splats.
+    Returns the new parameters on ``raw``'s device and the round's counts.
+
+    CUDA leaves take :func:`_densify_on_device`, which keeps every leaf on
+    the card; the rest, and any round with ``max_gaussians`` (whose cut
+    orders tied opacities as ``np.argsort`` does), take the NumPy twin
+    :func:`densify_and_prune_plain`.  Both give the same decisions,
+    counts and copied values; see ``_densify_on_device`` for the split
+    children.  Counted in ``densify_and_prune.rounds`` (of them
+    ``.device_rounds`` on the card) and, summed over rounds, ``.cloned``,
+    ``.split`` and ``.pruned``."""
+    kw = dict(grad_threshold=grad_threshold,
+              split_scale_threshold=split_scale_threshold,
+              min_opacity=min_opacity, split_factor=split_factor,
+              pad_multiple=pad_multiple, seed=seed)
+    densify_and_prune.rounds += 1
+    if raw.means.is_cuda and max_gaussians is None:
+        densify_and_prune.device_rounds += 1
+        new, stats = _densify_on_device(raw, grad_mean, **kw)
+    else:
+        new, stats = densify_and_prune_plain(raw, grad_mean,
+                                             max_gaussians=max_gaussians,
+                                             **kw)
+    for k in ("cloned", "split", "pruned"):
+        setattr(densify_and_prune, k, getattr(densify_and_prune, k)
+                + stats[k])
+    return new, stats
+
+
+densify_and_prune.rounds = 0
+densify_and_prune.device_rounds = 0
+densify_and_prune.cloned = 0
+densify_and_prune.split = 0
+densify_and_prune.pruned = 0
+
+
+def densify_and_prune_plain(raw: RawParams, grad_mean, *,
+                            grad_threshold: float = 5e-5,
+                            split_scale_threshold: float | None = None,
+                            min_opacity: float = 0.005,
+                            split_factor: float = 1.6,
+                            max_gaussians: int | None = None,
+                            pad_multiple: int = 256,
+                            seed: int = 0) -> tuple[RawParams, dict]:
+    """:func:`densify_and_prune` host-side in NumPy, exactly as
+    ``splat_tpu.train.densify_and_prune``: the leaves go to the host and
+    the result comes back to ``raw``'s device."""
     d = raw.to_numpy()
     g = (grad_mean.detach().cpu().numpy()
          if isinstance(grad_mean, torch.Tensor) else np.asarray(grad_mean))
@@ -371,6 +414,110 @@ def densify_and_prune(raw: RawParams, grad_mean, *,
              "split": len(split_idx), "pruned": int((~alive).sum()),
              "padded": n_pad, "n": n + n_pad}
     return RawParams.from_numpy(new, device=raw.means.device), stats
+
+
+def _densify_on_device(raw: RawParams, grad_mean, *, grad_threshold: float,
+                       split_scale_threshold: float | None,
+                       min_opacity: float, split_factor: float,
+                       pad_multiple: int, seed: int) -> tuple[RawParams,
+                                                               dict]:
+    """:func:`densify_and_prune_plain` on the leaves' device, in PyTorch
+    ops, the rows in the twin's order (kept, cloned, each split draw,
+    padding).  The host reads the live means' (3,) bounds (the norm of
+    their span is taken there with NumPy, as the twin takes it) and the
+    sizes, in two syncs, and uploads the split offsets' normal draws,
+    which it makes as the twin does.  Counts and every copied value equal
+    the twin's, and so does every decision but one on an opacity or a
+    largest scale within ``exp``'s float32 rounding (an ulp or two, which
+    the card and NumPy round apart) of its threshold.  A split child's
+    log-scale is the float64 difference rounded to float32, as NumPy 2
+    computes it (NumPy 1 subtracts in float32: 1 ulp at most); its mean
+    sums the offset's three rotation terms in the twin's order, and
+    differs from the twin's only by that rounding of ``exp`` in the
+    scale (or where NumPy fuses the sum)."""
+    leaves = {k: getattr(raw, k).detach() for k in RAW_FIELDS}
+    dev, means = leaves["means"].device, leaves["means"]
+    n_in = means.shape[0]
+    g = torch.as_tensor(grad_mean, dtype=torch.float32, device=dev)
+    opac = 1.0 / (1.0 + torch.exp(-leaves["logit_opacities"]))
+    scales = torch.exp(leaves["log_scales"])
+    alive = opac > min_opacity
+    if split_scale_threshold is None:
+        extent = 1.0
+        if n_in:
+            inf = torch.full((), math.inf, device=dev)
+            live = alive[:, None]
+            b = torch.stack([torch.where(live, means, -inf).amax(0),
+                             torch.where(live, means, inf).amin(0),
+                             means.amax(0), means.amin(0)]).cpu().numpy()
+            # the live means' span, or every mean's where none lives
+            hi, lo = (b[0], b[1]) if np.isfinite(b[0]).all() else b[2:]
+            extent = float(np.linalg.norm(hi - lo))
+        split_scale_threshold = 0.01 * max(extent, 1e-6)
+
+    needs = alive & (g > grad_threshold)
+    big = scales.amax(1) > split_scale_threshold
+    clone = needs & ~big
+    split = needs & big
+    keep = alive & ~split
+    n_keep, n_clone, n_split, n_alive = torch.stack([
+        keep.sum(), clone.sum(), split.sum(), alive.sum()]).tolist()
+
+    def rows(mask, size):
+        return torch.nonzero_static(mask, size=size).squeeze(1)
+
+    split_idx = rows(split, n_split)
+    src = torch.cat([rows(keep, n_keep), rows(clone, n_clone), split_idx,
+                     split_idx])
+    n = src.numel()
+    n_pad = (-n) % pad_multiple
+    dead = {"means": 0.0, "quats": 0.0, "log_scales": -12.0,
+            "logit_opacities": -15.0, "sh": 0.0}
+    new = {}
+    for k, v in leaves.items():
+        out = torch.empty((n + n_pad,) + v.shape[1:], dtype=v.dtype,
+                          device=dev)
+        torch.index_select(v, 0, src, out=out[:n])
+        out[n:].fill_(dead[k])
+        new[k] = out
+    new["quats"][n:, 0] = 1.0
+    if n_split:
+        draws = np.random.default_rng(seed)
+        eps = torch.from_numpy(np.stack([
+            draws.normal(size=(n_split, 3)).astype(np.float32)
+            for _ in range(2)])).to(dev)
+        rot = _quat_rotmat(leaves["quats"][split_idx])      # (S, 3, 3)
+        sc = scales[split_idx]
+        child = (leaves["log_scales"][split_idx].double()
+                 - math.log(split_factor)).float()
+        at = n_keep + n_clone
+        for e in eps:
+            v = sc * e
+            offset = ((rot[:, :, 0] * v[:, None, 0]
+                       + rot[:, :, 1] * v[:, None, 1])
+                      + rot[:, :, 2] * v[:, None, 2])
+            new["means"][at:at + n_split] += offset
+            new["log_scales"][at:at + n_split] = child
+            at += n_split
+    stats = {"kept": n_keep, "cloned": n_clone, "split": n_split,
+             "pruned": n_in - n_alive, "padded": n_pad, "n": n + n_pad}
+    return RawParams(**new), stats
+
+
+def _quat_rotmat(q: torch.Tensor) -> torch.Tensor:
+    """:func:`_np_quat_rotmat` in PyTorch, operation for operation."""
+    nrm = torch.sqrt(((q[:, 0] * q[:, 0] + q[:, 1] * q[:, 1])
+                      + q[:, 2] * q[:, 2]) + q[:, 3] * q[:, 3])
+    q = q / torch.clamp(nrm, min=1e-12)[:, None]
+    w, x, y, z = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], 1)
 
 
 class _Adam:
@@ -472,7 +619,8 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
         opacity_reset_every: int = 0, opacity_reset_to: float = 0.01,
         sh_warmup_every: int = 0, mesh=None,
         loss_fn: Callable | None = None,
-        progress_cb: Callable | None = None) -> FitResult:
+        progress_cb: Callable | None = None,
+        densify_cb: Callable | None = None) -> FitResult:
     """Fit ``scene`` to ``targets`` rendered from ``cameras``.
 
     The arguments are those of ``splat_tpu.train.fit``, except that
@@ -489,6 +637,11 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
     came within 5% of the capacity, raises ``max_dup_factor`` (with a
     warning when pairs were dropped): never a silent truncation.
     ``progress_cb(step, loss, num_gaussians)`` runs after each segment.
+    A densification round (span ``stt.fit.densify``: the selection, the
+    copies, the padding, the re-audit and Adam's re-initialisation) is
+    followed by ``densify_cb(before, grad_mean, after, stats)``: the whole
+    raw leaves before and after it, the mean positional-gradient norm it
+    decided on and its counts.
 
     ``mesh``: a (d, g) mesh from ``parallel.make_mesh``, with every rank
     calling fit with the same whole scene, cameras and targets (ignored
@@ -665,32 +818,36 @@ def fit(scene: GaussianScene, cameras, targets, *, steps: int = 200,
         if b1 == steps:
             break
         if densify_every and b1 % densify_every == 0:
-            whole = par.whole(raw) if par is not None else raw
-            grad_mean = gsum_acc / gsteps
-            if par is not None:
-                grad_mean = par.gather(grad_mean)
-            whole, stats = densify_and_prune(whole, grad_mean,
-                                             **(densify_kwargs or {}))
-            densify_log.append(stats)
-            check_tp_divisibility(whole.num_gaussians)
-            raw = par.shard(whole) if par is not None and par.tp else whole
-            n_total = whole.num_gaussians
-            adam = _Adam(raw)           # topology changed
-            gsum_acc, gsteps = None, 0
-            if tiled:
-                # pruning shrinks k_cap while the survivors keep their
-                # footprints: re-audit and raise instead of truncating
-                need = _required_dup_factor(whole.to_scene(), cameras,
-                                            config)
-                if config.max_dup_factor < need:
-                    new_dup = math.ceil(need * 20) / 20
-                    warnings.warn(
-                        f"fit: densification left max_dup_factor="
-                        f"{config.max_dup_factor} below the measured pair "
-                        f"demand ({need:.2f}); raising it to {new_dup}",
-                        stacklevel=2)
-                    config = dataclasses.replace(config,
-                                                 max_dup_factor=new_dup)
+            with torch.profiler.record_function("stt.fit.densify"):
+                before = par.whole(raw) if par is not None else raw
+                grad_mean = gsum_acc / gsteps
+                if par is not None:
+                    grad_mean = par.gather(grad_mean)
+                whole, stats = densify_and_prune(before, grad_mean,
+                                                 **(densify_kwargs or {}))
+                densify_log.append(stats)
+                check_tp_divisibility(whole.num_gaussians)
+                raw = (par.shard(whole) if par is not None and par.tp
+                       else whole)
+                n_total = whole.num_gaussians
+                adam = _Adam(raw)           # topology changed
+                gsum_acc, gsteps = None, 0
+                if tiled:
+                    # pruning shrinks k_cap while the survivors keep their
+                    # footprints: re-audit and raise instead of truncating
+                    need = _required_dup_factor(whole.to_scene(), cameras,
+                                                config)
+                    if config.max_dup_factor < need:
+                        new_dup = math.ceil(need * 20) / 20
+                        warnings.warn(
+                            f"fit: densification left max_dup_factor="
+                            f"{config.max_dup_factor} below the measured "
+                            f"pair demand ({need:.2f}); raising it to "
+                            f"{new_dup}", stacklevel=2)
+                        config = dataclasses.replace(config,
+                                                     max_dup_factor=new_dup)
+            if densify_cb is not None:
+                densify_cb(before, grad_mean, whole, stats)
         if opacity_reset_every and b1 % opacity_reset_every == 0:
             # clamp every opacity down; only the opacity moments reset
             cap = math.log(opacity_reset_to / (1.0 - opacity_reset_to))

@@ -876,3 +876,52 @@ def test_chained_bench_compiled_equals_eager(dev):
     for k in ("overflow", "num_pairs", "visible"):
         assert g[k] == e[k], k
     assert e["compile_s"] == 0.0 and g["overflow"] == 0
+
+
+@pytest.mark.parametrize("n, kw", [
+    (1500, dict(grad_threshold=2e-4)),
+    (1500, dict(grad_threshold=5e-5, min_opacity=0.3, split_factor=2.0,
+                pad_multiple=1, seed=5)),
+    (300_000, dict(grad_threshold=3e-4, seed=7)),
+], ids=["default", "prune_heavy", "300k"])
+def test_densify_round_on_card_equals_twin(dev, n, kw):
+    """densify_and_prune of CUDA leaves stays on the card and equals the
+    NumPy twin: counts, copied rows bit for bit, split children within
+    exp's rounding (tests/test_torch_densify.py)."""
+    from test_torch_densify import _check, _state
+
+    stats = _check(*_state(n=n, seed=n % 97), device=dev, **kw)
+    assert stats["cloned"] > 0 and stats["split"] > 0
+    assert stats["pruned"] > 0
+
+
+def test_fit_densifies_on_card(dev):
+    """fit(densify_every=) on the card: every round on the card, and the
+    round densify_cb reports equals the twin's on its inputs."""
+    from test_torch_densify import assert_round_equal, split_bound
+
+    from splat_tpu_torch import train as tt
+
+    truth = stt.random_scene(3000, seed=5, extent=1.5,
+                             scale_range=(0.02, 0.08), device=dev)
+    cams = stt.orbit_trajectory(
+        stt.Camera.create(h=96, w=128, position=(0.0, 0.0, 4.0),
+                          device=dev), 2, yaw_sweep=0.5)
+    targets = torch.stack([stt.render_tiled(truth, c) for c in cams])
+    start = dataclasses.replace(truth, sh=truth.sh * 0.7)
+    kw = dict(grad_threshold=2e-5, min_opacity=0.05, pad_multiple=64)
+    calls = []
+    r0 = tt.densify_and_prune.rounds
+    d0 = tt.densify_and_prune.device_rounds
+    res = stt.fit(start, cams, targets, steps=6, lr=5e-3, method="tiled",
+                  dssim_weight=0.2, densify_every=2, densify_kwargs=kw,
+                  densify_cb=lambda *a: calls.append(a))
+    assert tt.densify_and_prune.rounds - r0 == 2 == len(calls)
+    assert tt.densify_and_prune.device_rounds - d0 == 2
+    assert bool(torch.isfinite(res.losses).all())
+    before, grad_mean, after, stats = calls[0]
+    assert stats["cloned"] > 0 and stats["split"] > 0
+    plain, pstats = tt.densify_and_prune_plain(before, grad_mean, **kw)
+    assert_round_equal(after, stats, plain, pstats,
+                       split_bound(before, grad_mean, pstats, **kw))
+
